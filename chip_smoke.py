@@ -6,9 +6,11 @@ one card). It imports nothing of JAX or of ``ray_tpu``. Phases, each one
 JSON line on stdout:
 
 1. device + build: the card (``nvidia-smi`` name and power limit), then the
-   three flash-attention kernels built from ``ray_tpu_torch/ops/csrc`` for
+   flash-attention kernels built from ``ray_tpu_torch/ops/csrc`` for
    ``sm_90a`` (build seconds, registers/spills from ``-Xptxas -v``, dynamic
-   shared memory per block);
+   shared memory per block); the forward has two kernels, bf16 on the
+   tensor cores (``flash_fwd_tc.cu``, which must not spill at d=128) and
+   f32 on the CUDA cores (``flash_fwd.cu``);
 2. parity: each kernel against its plain PyTorch version on the same
    inputs, at the training slice's shapes (b=2, h=32, S=2048, d=128, bf16,
    causal) and at GQA, non-causal, f32 and S=1000 variants, every element
@@ -21,8 +23,9 @@ JSON line on stdout:
    timed only as a yardstick) with CUDA events, beside the card's bound;
 5. slice: the Llama training step at 7B width (depth cut to 4 layers),
    one warm step and 3 timed steps on a fixed batch; the loss must be
-   finite and fall, and each kernel's launch count must equal
-   ``n_layers x steps``.
+   finite and fall, each kernel's launch count must equal
+   ``n_layers x steps``, and every forward launch must take the
+   tensor-core route.
 
 Then the ``kernels`` summary line, the ``nvidia-smi`` line, and last the
 ``{"ok": true, "device": ...}`` line. Any failed check raises: the script
@@ -49,11 +52,17 @@ TPU_KERNELS = {  # wrapper → (TPU kernel it replaces, file:line of its body)
     "flash_bwd_dq": ("_bwd_dq_kernel", "ray_tpu/ops/attention.py:269"),
     "flash_bwd_dkv": ("_bwd_dkv_kernel", "ray_tpu/ops/attention.py:311"),
 }
-SOURCES = {
-    "flash_fwd": "ray_tpu_torch/ops/csrc/flash_fwd.cu",
+SOURCES = {  # the kernel each wrapper launches on the bf16 main path
+    "flash_fwd": "ray_tpu_torch/ops/csrc/flash_fwd_tc.cu",
     "flash_bwd_dq": "ray_tpu_torch/ops/csrc/flash_bwd_dq.cu",
     "flash_bwd_dkv": "ray_tpu_torch/ops/csrc/flash_bwd_dkv.cu",
 }
+#: (kernel, dtype) pairs the library instantiates, each at every head dim
+INSTANTIATED = (("flash_fwd_kernel", "f32"), ("flash_fwd_tc_kernel", "bf16"),
+                ("flash_bwd_dq_kernel", "f32"), ("flash_bwd_dq_kernel", "bf16"),
+                ("flash_bwd_dkv_kernel", "f32"), ("flash_bwd_dkv_kernel", "bf16"))
+
+
 def emit(obj) -> None:
     print(json.dumps(obj), flush=True)
 
@@ -100,16 +109,21 @@ def ptxas_summary(report: str) -> list:
 
 def phase_build(torch):
     from ray_tpu_torch.ops import _build
+    from ray_tpu_torch.ops.attention import KERNEL_HEAD_DIMS
 
     path, report = _build.build()
     lib = _build.library()
-    smem = {k: {d: getattr(lib, f"rtt_{k}_smem_bytes")(d) for d in (16, 32, 64, 128)}
-            for k in SOURCES}
+    smem = {k: {d: getattr(lib, f"rtt_{k}_smem_bytes")(d) for d in KERNEL_HEAD_DIMS}
+            for k in ("flash_fwd", "flash_fwd_tc", "flash_bwd_dq", "flash_bwd_dkv")}
     regs = ptxas_summary(report["ptxas"])
-    check(len(regs) == 24, f"ptxas reported {len(regs)} kernels, expected 24")
+    got = sorted((r["kernel"], r["dtype"], r["d"]) for r in regs)
+    want = sorted((k, dt, d) for k, dt in INSTANTIATED for d in KERNEL_HEAD_DIMS)
+    check(got == want, f"ptxas reported {got}, expected {want}")
+    tc128 = next(r for r in regs if r["kernel"] == "flash_fwd_tc_kernel" and r["d"] == 128)
     emit({"phase": "build", "arch": "sm_90a", "library": path.name,
           "seconds": report["seconds"], "cached": report["cached"],
-          "dynamic_smem_bytes": smem, "ptxas": regs})
+          "dynamic_smem_bytes": smem, "fwd_tc_d128": tc128, "ptxas": regs})
+    check(tc128["spill_bytes"] == 0, f"tensor-core forward spills at d=128: {tc128}")
 
 
 # ---------------------------------------------------------------------------
@@ -251,20 +265,23 @@ def phase_slice(torch, A, L, smi: str):
     torch.cuda.synchronize()
     elapsed = time.perf_counter() - t0
     launches = {fn.__name__: fn.launches for fn in A.KERNELS}  # read just after
+    fwd_routes = dict(A.flash_fwd.route_launches)
 
     steps = 1 + steps_timed
     check(all(math.isfinite(x) for x in losses), f"losses finite: {losses}")
     check(losses[-1] < losses[0], f"loss falls: {losses}")
     for name, n in launches.items():
         check(n == n_layers * steps, f"{name} launched {n} times, expected {n_layers * steps}")
+    check(fwd_routes == {"tensor_core": n_layers * steps, "cuda_core": 0},
+          f"bf16 forward launches by route {fwd_routes}: all must take the tensor cores")
     step_s = elapsed / steps_timed
     emit({"phase": "slice", "config": f"LlamaConfig.llama2_7b(n_layers={n_layers})",
           "reduced": [f"n_layers 32 -> {n_layers}"], "params": L.param_count(cfg),
           "batch": batch, "seq": seq, "dtype": "bfloat16", "optimizer": f"adamw(lr={lr})",
           "losses": losses, "step_ms": 1e3 * step_s, "tokens_per_s": batch * seq / step_s,
           "max_memory_allocated_bytes": torch.cuda.max_memory_allocated(),
-          "launches": launches, "nvidia_smi": smi})
-    return launches
+          "launches": launches, "fwd_launches_by_route": fwd_routes, "nvidia_smi": smi})
+    return launches, fwd_routes
 
 
 def main() -> int:
@@ -289,11 +306,12 @@ def main() -> int:
     errs = phase_parity(K, A)
     phase_reference(K, L)
     times = phase_times(torch, K, A)
-    launches = phase_slice(torch, A, L, smi)
+    launches, fwd_routes = phase_slice(torch, A, L, smi)
     emit({"kernels": [
         {"name": k, "route": "cuda", "source": SOURCES[k],
          "replaces": TPU_KERNELS[k][1], "replaces_fn": TPU_KERNELS[k][0],
-         "launches": launches[k], "max_abs_err": errs[k], **times[k]}
+         "launches": launches[k], "max_abs_err": errs[k], **times[k],
+         **({"launches_by_route": fwd_routes} if k == "flash_fwd" else {})}
         for k in SOURCES
     ]})
     print(smi, flush=True)

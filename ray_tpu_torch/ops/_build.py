@@ -33,6 +33,7 @@ SIGNATURES = {
     "rtt_flash_bwd_dkv": [_P] * 8 + [_I] * 6 + [_F, _I, _I, _P],
     # dynamic shared memory of one block at a head_dim (-1: not built for it)
     "rtt_flash_fwd_smem_bytes": [_I],
+    "rtt_flash_fwd_tc_smem_bytes": [_I],
     "rtt_flash_bwd_dq_smem_bytes": [_I],
     "rtt_flash_bwd_dkv_smem_bytes": [_I],
 }

@@ -11,6 +11,10 @@ kernel (wrapper here)         replaces (``ray_tpu/ops/attention.py``)
 ``flash_bwd_dkv``             ``_bwd_dkv_kernel`` via ``_flash_bwd``
 ============================  ===========================================
 
+``flash_fwd`` has two kernels, picked by dtype (``fwd_route``): bf16 runs
+on the tensor cores (``flash_fwd_tc.cu``), f32 on the CUDA cores
+(``flash_fwd.cu``); ``flash_fwd.route_launches`` counts each.
+
 Each wrapper launches its kernel for a CUDA tensor and counts the launch in
 its ``launches`` attribute; for a CPU tensor it runs the kernel's plain
 PyTorch version (``_*_plain``, same function, same casts), which the CPU
@@ -212,6 +216,17 @@ def _check_rows(lse, delta, q):
             raise ValueError(f"{name} must be contiguous f32 {want} on {q.device}")
 
 
+def fwd_route(dtype: torch.dtype) -> str:
+    """The forward kernel a dtype takes (``rtt_flash_fwd`` picks by the same
+    rule): bf16 runs on the tensor cores (``flash_fwd_tc.cu``), f32 on the
+    CUDA cores (``flash_fwd.cu``), since a tensor-core f32 product is TF32."""
+    if dtype == torch.bfloat16:
+        return "tensor_core"
+    if dtype == torch.float32:
+        return "cuda_core"
+    raise ValueError(f"flash_fwd: dtype {dtype} unsupported (float32, bfloat16)")
+
+
 def flash_fwd(q, k, v, *, causal: bool, sm_scale: float, h: int, hk: int):
     """Forward kernel: q ``[b*h, sq, d]``, k/v ``[b*hk, sk, d]`` →
     ``(o [b*h, sq, d] in q's dtype, lse [b*h, sq, 1] f32)``."""
@@ -220,11 +235,15 @@ def flash_fwd(q, k, v, *, causal: bool, sm_scale: float, h: int, hk: int):
         return _fwd_plain(q, k, v, causal, sm_scale, h, hk)
     bh, sq, d = q.shape
     dtype = _check_kernel_inputs("flash_fwd", (q, k, v), d)
+    route = fwd_route(q.dtype)
+    if route == "tensor_core" and any(x.data_ptr() % 16 for x in (q, k, v)):
+        raise ValueError("flash_fwd: bf16 inputs must start on a 16-byte boundary")
     o = torch.empty_like(q)
     lse = torch.empty(bh, sq, 1, dtype=torch.float32, device=q.device)
     _launch("rtt_flash_fwd", (q, k, v, o, lse),
             bh, h, hk, sq, k.shape[1], d, float(sm_scale), int(causal), dtype)
     flash_fwd.launches += 1
+    flash_fwd.route_launches[route] += 1
     return o, lse
 
 
@@ -260,6 +279,7 @@ def flash_bwd_dkv(q, k, v, do, lse, delta, *, causal: bool, sm_scale: float, h: 
 
 
 flash_fwd.launches = 0
+flash_fwd.route_launches = {"tensor_core": 0, "cuda_core": 0}
 flash_bwd_dq.launches = 0
 flash_bwd_dkv.launches = 0
 KERNELS = (flash_fwd, flash_bwd_dq, flash_bwd_dkv)
@@ -268,6 +288,7 @@ KERNELS = (flash_fwd, flash_bwd_dq, flash_bwd_dkv)
 def reset_launch_counts() -> None:
     for fn in KERNELS:
         fn.launches = 0
+    flash_fwd.route_launches = dict.fromkeys(flash_fwd.route_launches, 0)
 
 
 # ---------------------------------------------------------------------------

@@ -1,7 +1,10 @@
-// Flash-attention forward (FlashAttention-2, online softmax).
+// Flash-attention forward (FlashAttention-2, online softmax), f32.
 //
 // Replaces the TPU kernel ray_tpu/ops/attention.py::_fwd_kernel (launched
-// by _flash_fwd). Computes, for every (batch*head, query row),
+// by _flash_fwd) for f32 inputs. rtt_flash_fwd below hands bf16 inputs to
+// the tensor-core kernel of flash_fwd_tc.cu; f32 stays here, on the CUDA
+// cores, because a tensor-core f32 product is TF32 and cannot meet the f32
+// parity bound. Computes, for every (batch*head, query row),
 //   o   = softmax(q.K^T * scale) . V       (q's dtype)
 //   lse = m + log(l)                       (f32, saved for the backward)
 // keeping (m, l, acc) in f32 registers; p is rounded to V's dtype before
@@ -15,7 +18,7 @@
 // in shared memory for the whole loop, each K/V tile is read once per
 // block, causal tiles above the diagonal are never loaded, and every
 // shared-memory value feeds 4 FMAs (4 x 4 register micro-tiles). It runs
-// on the CUDA cores; a tensor-core version is later work.
+// on the CUDA cores (67 TFLOP/s f32 peak).
 #include "flash_common.cuh"
 
 namespace rtt {
@@ -108,18 +111,37 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
   }
 }
 
+template <int D>
+int fwd_f32_launch(const void* q, const void* k, const void* v, void* o, void* lse, int bh, int h,
+                   int hk, int sq, int sk, float scale, int causal, void* stream) {
+  const dim3 grid((sq + BM - 1) / BM, bh);
+  return (int)launch(flash_fwd_kernel<float, D>, grid, fwd_smem_bytes<D>(), stream,
+                     static_cast<const float*>(q), static_cast<const float*>(k),
+                     static_cast<const float*>(v), static_cast<float*>(o),
+                     static_cast<float*>(lse), h, hk, sq, sk, scale, causal);
+}
+
+// flash_fwd_tc.cu: the bf16 kernel
+int flash_fwd_tc(const void* q, const void* k, const void* v, void* o, void* lse, int bh, int h,
+                 int hk, int sq, int sk, int head_dim, float scale, int causal, void* stream);
+
 }  // namespace rtt
 
 // q [b*h, sq, d]; k, v [b*hk, sk, d]; o like q; lse [b*h, sq] f32.
+// dtype 0 = float32 (CUDA cores, here), 1 = bfloat16 (tensor cores).
 extern "C" int rtt_flash_fwd(const void* q, const void* k, const void* v, void* o, void* lse,
                              int bh, int h, int hk, int sq, int sk, int head_dim, float scale,
                              int causal, int dtype, void* stream) {
-  const dim3 grid((sq + rtt::BM - 1) / rtt::BM, bh);
-  RTT_DISPATCH(dtype, head_dim,
-               rtt::launch(rtt::flash_fwd_kernel<T, D>, grid, rtt::fwd_smem_bytes<D>(), stream,
-                           static_cast<const T*>(q), static_cast<const T*>(k),
-                           static_cast<const T*>(v), static_cast<T*>(o),
-                           static_cast<float*>(lse), h, hk, sq, sk, scale, causal));
+  if (dtype == 1)
+    return rtt::flash_fwd_tc(q, k, v, o, lse, bh, h, hk, sq, sk, head_dim, scale, causal, stream);
+  if (dtype != 0) return (int)cudaErrorInvalidValue;
+  switch (head_dim) {
+    case 16: return rtt::fwd_f32_launch<16>(q, k, v, o, lse, bh, h, hk, sq, sk, scale, causal, stream);
+    case 32: return rtt::fwd_f32_launch<32>(q, k, v, o, lse, bh, h, hk, sq, sk, scale, causal, stream);
+    case 64: return rtt::fwd_f32_launch<64>(q, k, v, o, lse, bh, h, hk, sq, sk, scale, causal, stream);
+    case 128: return rtt::fwd_f32_launch<128>(q, k, v, o, lse, bh, h, hk, sq, sk, scale, causal, stream);
+  }
+  return (int)cudaErrorInvalidValue;
 }
 
 extern "C" int rtt_flash_fwd_smem_bytes(int head_dim) { RTT_SMEM_BYTES(rtt::fwd_smem_bytes, head_dim); }

@@ -75,14 +75,36 @@ CASES = {
 
 _BF16_CASES = ("main", "gqa", "non_causal", "s1000")
 _FWD_BOUND = "if (causal) nkb = min(nkb, (q0 + BM - 1) / BN + 1);"
+_FWD_DROP_DIAG = "if (causal) nkb = min(nkb, (q0 + BM - 1) / BN + 1) - (q0 >= sq / 2);"
+_TC_PV = ("          mma_bf16_16816(oacc[2 * dp], pa, vb[0], vb[1]);\n"
+          "          mma_bf16_16816(oacc[2 * dp + 1], pa, vb[2], vb[3]);\n")
 #: name -> (source file, text, replacement, cases it must fail: None = any
-#: verdict is reported, nothing is required)
+#: verdict is reported, nothing is required). The forward's bf16 cases run
+#: the tensor-core kernel (flash_fwd_tc.cu), its f32 cases and the tiny
+#: Llama the CUDA-core one (flash_fwd.cu).
 MUTANTS = {
     # the second half of the q tiles drops its diagonal K tile
     "fwd_drop_diag_tile_late_rows": (
-        "flash_fwd.cu", _FWD_BOUND,
-        "if (causal) nkb = min(nkb, (q0 + BM - 1) / BN + 1) - (q0 >= sq / 2);",
-        ("main", "gqa", "f32", "s1000", "tiny")),
+        "flash_fwd.cu", _FWD_BOUND, _FWD_DROP_DIAG, ("f32", "tiny")),
+    "fwd_tc_drop_diag_tile_late_rows": (
+        "flash_fwd_tc.cu", _FWD_BOUND, _FWD_DROP_DIAG, ("main", "gqa", "s1000")),
+    # the accumulator is not rescaled when the running maximum grows
+    "fwd_tc_skip_alpha_rescale": (
+        "flash_fwd_tc.cu",
+        "oacc[j][0] *= alpha[0]; oacc[j][1] *= alpha[0]; oacc[j][2] *= alpha[1]; "
+        "oacc[j][3] *= alpha[1];",
+        "", _BF16_CASES),
+    # p kept to 16 bits before P.V (a bf16 part and a bf16 remainder, two
+    # products) instead of rounded to bf16; reported only, as for the f32
+    # kernel's fwd_p_unrounded below
+    "fwd_tc_p_unrounded": (
+        "flash_fwd_tc.cu", _TC_PV,
+        "          uint32_t pr[4];\n"
+        "          for (int i = 0; i < 4; ++i)\n"
+        "            pr[i] = pack_bf16x2(ps[2 * i] - __uint_as_float(pa[i] << 16),\n"
+        "                                ps[2 * i + 1] - __uint_as_float(pa[i] & 0xffff0000u));\n"
+        + _TC_PV + _TC_PV.replace("pa,", "pr,"),
+        None),
     # the second half of the q rows skips the first K tile
     "dq_skip_first_tile_late_rows": (
         "flash_bwd_dq.cu", "for (int kb = 0; kb < nkb; ++kb) {",
@@ -205,7 +227,7 @@ def case_ok(readings: dict) -> bool:
 
 
 @contextlib.contextmanager
-def _library(lib):
+def use_library(lib):
     """Route the wrappers' launches to ``lib`` for the duration."""
     from ray_tpu_torch.ops import _build
 
@@ -217,15 +239,16 @@ def _library(lib):
         _build.library = saved
 
 
-def _mutant_library(tmp: Path, name: str):
+def variant_library(tmp: Path, name: str, fname: str, text: str, repl: str):
+    """Build and load a copy of the kernel sources in which ``text``, found
+    exactly once in ``fname``, is replaced by ``repl``."""
     from ray_tpu_torch.ops import _build
 
-    fname, text, repl, _ = MUTANTS[name]
     csrc = tmp / name / "csrc"
     shutil.copytree(_build.CSRC, csrc)
     src = (csrc / fname).read_text()
     if src.count(text) != 1:
-        raise RuntimeError(f"mutant {name}: {text!r} is not once in {fname}")
+        raise RuntimeError(f"variant {name}: {text!r} is not once in {fname}")
     (csrc / fname).write_text(src.replace(text, repl))
     path, _ = _build.build(csrc=csrc, build_dir=tmp / name / "build")
     return _build.load(path)
@@ -262,7 +285,8 @@ def main() -> int:
     failures += [f"sound/{c}" for c, ok in sound.items() if not ok]
     with tempfile.TemporaryDirectory() as tmp:
         for name, (*_, must_fail) in MUTANTS.items():
-            with _library(_mutant_library(Path(tmp), name)):
+            fname, text, repl, _ = MUTANTS[name]
+            with use_library(variant_library(Path(tmp), name, fname, text, repl)):
                 verdicts = _run_variant(A, L, name)
             failures += [f"{name}/{c} passed" for c in must_fail or () if verdicts[c]]
     print(json.dumps({"failures": failures}), flush=True)

@@ -226,6 +226,16 @@ def test_cpu_path_counts_no_launch():
     q, k, v = make_qkv(s=128)
     _grads_torch(q, k, v, True, "auto")
     assert [fn.launches for fn in tattn.KERNELS] == [0, 0, 0]
+    assert tattn.flash_fwd.route_launches == {"tensor_core": 0, "cuda_core": 0}
+
+
+def test_fwd_route_by_dtype():
+    """bf16 takes the tensor-core forward, f32 the CUDA-core one (a
+    tensor-core f32 product is TF32); other dtypes have no kernel."""
+    assert tattn.fwd_route(torch.bfloat16) == "tensor_core"
+    assert tattn.fwd_route(torch.float32) == "cuda_core"
+    with pytest.raises(ValueError, match="unsupported"):
+        tattn.fwd_route(torch.float16)
 
 
 # ---------------------------------------------------------------------------
@@ -329,15 +339,18 @@ def cuda_device():
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("d", tattn.KERNEL_HEAD_DIMS)
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("causal,hk,s", [(True, 4, 256), (False, 2, 200), (True, 1, 130)])
-def test_cuda_kernels_match_plain(cuda_device, dtype, causal, hk, s):
+def test_cuda_kernels_match_plain(cuda_device, dtype, causal, hk, s, d):
     """Each kernel against its plain version on the card, by
     ``kernel_check.compare``: every element within TOL[dtype][kind] of its
     own size and its row's (bf16: about one ulp of rounding of outputs and
-    p/dS; f32: summation order)."""
+    p/dS; f32: summation order). bf16 runs the tensor-core forward, f32
+    the CUDA-core one, at every instantiated head_dim, with ragged S and
+    GQA."""
     readings = kernel_check.parity_case(
-        tattn, dict(b=2, h=4, hk=hk, s=s, d=64, dtype=dtype, causal=causal))
+        tattn, dict(b=2, h=4, hk=hk, s=s, d=d, dtype=dtype, causal=causal))
     for what, r in readings.items():
         assert r["ok"], (what, r)
 
@@ -348,6 +361,21 @@ def test_cuda_autograd_counts_launches(cuda_device):
     q = torch.randn(1, 2, 128, 32, device=cuda_device, requires_grad=True)
     tattn.flash_attention(q, q, q, causal=True, impl="pallas").sum().backward()
     assert [fn.launches for fn in tattn.KERNELS] == [1, 1, 1]
+    assert tattn.flash_fwd.route_launches == {"tensor_core": 0, "cuda_core": 1}
+    qb = q.detach().to(torch.bfloat16).requires_grad_()
+    tattn.flash_attention(qb, qb, qb, causal=True, impl="pallas").sum().backward()
+    assert [fn.launches for fn in tattn.KERNELS] == [2, 2, 2]
+    assert tattn.flash_fwd.route_launches == {"tensor_core": 1, "cuda_core": 1}
+
+
+@pytest.mark.cuda
+def test_cuda_fwd_refuses_misaligned_bf16(cuda_device):
+    """The tensor-core forward copies 16-byte chunks: a bf16 view that
+    starts off a 16-byte boundary is refused, not read misaligned."""
+    buf = torch.randn(2 * 128 * 64 + 1, device=cuda_device).to(torch.bfloat16)
+    q = buf[1:].view(2, 128, 64)
+    with pytest.raises(ValueError, match="16-byte"):
+        tattn.flash_fwd(q, q, q, causal=True, sm_scale=0.125, h=2, hk=2)
 
 
 def test_kernel_build_names_library_by_source_hash(tmp_path, monkeypatch):
@@ -370,7 +398,8 @@ def test_kernel_build_names_library_by_source_hash(tmp_path, monkeypatch):
 
     path, report = _build.build()
     assert path.name == f"libray_tpu_torch_kernels_{_build._digest()}.so" and path.exists()
-    assert not report["cached"] and report["ptxas"].count("Used 42 registers") == 3
+    n_sources = len(list(_build.CSRC.glob("*.cu")))
+    assert not report["cached"] and report["ptxas"].count("Used 42 registers") == n_sources
     assert sorted(p.name for p in (tmp_path / "build").iterdir()) == sorted(
         [path.name, path.with_suffix(".log").name])  # objects removed
     again_path, again = _build.build()
@@ -381,3 +410,54 @@ def test_kernel_build_names_library_by_source_hash(tmp_path, monkeypatch):
     with pytest.raises(RuntimeError, match="bad kernel"):
         _build.build()
     assert not any(p.suffix == ".o" for p in (tmp_path / "build").iterdir())
+
+
+def _extern_c_entries() -> dict:
+    """``extern "C"`` entry points of ``ops/csrc/*.cu``: name -> ctypes type
+    of each parameter, parsed from the sources."""
+    import ctypes
+    import re
+
+    from ray_tpu_torch.ops import _build
+
+    entries = {}
+    for src in sorted(_build.CSRC.glob("*.cu")):
+        text = src.read_text()
+        for name, params in re.findall(r'extern "C" int (\w+)\(([^)]*)\)', text):
+            types = []
+            for p in params.split(","):
+                p = " ".join(p.split())
+                types.append(ctypes.c_void_p if "*" in p else
+                             ctypes.c_float if p.startswith("float") else
+                             ctypes.c_int if p.startswith("int") else p)
+            assert name not in entries, f"{name} defined twice"
+            entries[name] = types
+    return entries
+
+
+def test_build_signatures_match_extern_c_sources():
+    """Every C entry point of the kernel sources has a ``SIGNATURES`` row
+    with the same argument types, and every row names an entry point:
+    ctypes would otherwise pass a pointer as a 32-bit int, or fail only
+    when the library loads on the card."""
+    from ray_tpu_torch.ops import _build
+
+    entries = _extern_c_entries()
+    assert set(entries) == set(_build.SIGNATURES)
+    for name, types in entries.items():
+        assert types == _build.SIGNATURES[name], name
+
+
+def test_kernel_check_mutants_apply_to_sources():
+    """Each broken copy of ``kernel_check.MUTANTS`` finds its text exactly
+    once in its source (so a source edit cannot silently disarm it before
+    anyone reaches a card), changes it, and names only cases that exist."""
+    from ray_tpu_torch.ops import _build
+
+    assert {"fwd_tc_drop_diag_tile_late_rows", "fwd_tc_skip_alpha_rescale",
+            "fwd_tc_p_unrounded"} <= set(kernel_check.MUTANTS)
+    for name, (fname, text, repl, must_fail) in kernel_check.MUTANTS.items():
+        assert (_build.CSRC / fname).read_text().count(text) == 1, name
+        assert repl != text, name
+        for case in must_fail or ():
+            assert case in kernel_check.CASES or case == "tiny", (name, case)
