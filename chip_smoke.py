@@ -8,9 +8,10 @@ JSON line on stdout:
 1. device + build: the card (``nvidia-smi`` name and power limit), then the
    flash-attention kernels built from ``ray_tpu_torch/ops/csrc`` for
    ``sm_90a`` (build seconds, registers/spills from ``-Xptxas -v``, dynamic
-   shared memory per block); the forward has two kernels, bf16 on the
-   tensor cores (``flash_fwd_tc.cu``, which must not spill at d=128) and
-   f32 on the CUDA cores (``flash_fwd.cu``);
+   shared memory per block); each of the three has two kernels, bf16 on the
+   tensor cores (``flash_fwd_tc.cu``, ``flash_bwd_dq_tc.cu``,
+   ``flash_bwd_dkv_tc.cu``, none of which may spill at d=128) and f32 on the
+   CUDA cores (``flash_fwd.cu``, ``flash_bwd_dq.cu``, ``flash_bwd_dkv.cu``);
 2. parity: each kernel against its plain PyTorch version on the same
    inputs, at the training slice's shapes (b=2, h=32, S=2048, d=128, bf16,
    causal) and at GQA, non-causal, f32 and S=1000 variants, every element
@@ -20,11 +21,13 @@ JSON line on stdout:
    gradient leaf by relative norm);
 4. times: each kernel, its plain version and the PyTorch library call for
    the same function (``scaled_dot_product_attention`` forward/backward,
-   timed only as a yardstick) with CUDA events, beside the card's bound;
+   timed only as a yardstick) with CUDA events, beside the card's bound,
+   and the dq and dk/dv kernels together against SDPA's one backward call
+   and against the bound of the function that call computes;
 5. slice: the Llama training step at 7B width (depth cut to 4 layers),
    one warm step and 3 timed steps on a fixed batch; the loss must be
    finite and fall, each kernel's launch count must equal
-   ``n_layers x steps``, and every forward launch must take the
+   ``n_layers x steps``, and every launch of every kernel must take the
    tensor-core route.
 
 Then the ``kernels`` summary line, the ``nvidia-smi`` line, and last the
@@ -37,7 +40,6 @@ from __future__ import annotations
 
 import json
 import math
-import re
 import subprocess
 import sys
 import time
@@ -54,13 +56,13 @@ TPU_KERNELS = {  # wrapper → (TPU kernel it replaces, file:line of its body)
 }
 SOURCES = {  # the kernel each wrapper launches on the bf16 main path
     "flash_fwd": "ray_tpu_torch/ops/csrc/flash_fwd_tc.cu",
-    "flash_bwd_dq": "ray_tpu_torch/ops/csrc/flash_bwd_dq.cu",
-    "flash_bwd_dkv": "ray_tpu_torch/ops/csrc/flash_bwd_dkv.cu",
+    "flash_bwd_dq": "ray_tpu_torch/ops/csrc/flash_bwd_dq_tc.cu",
+    "flash_bwd_dkv": "ray_tpu_torch/ops/csrc/flash_bwd_dkv_tc.cu",
 }
 #: (kernel, dtype) pairs the library instantiates, each at every head dim
 INSTANTIATED = (("flash_fwd_kernel", "f32"), ("flash_fwd_tc_kernel", "bf16"),
-                ("flash_bwd_dq_kernel", "f32"), ("flash_bwd_dq_kernel", "bf16"),
-                ("flash_bwd_dkv_kernel", "f32"), ("flash_bwd_dkv_kernel", "bf16"))
+                ("flash_bwd_dq_kernel", "f32"), ("flash_bwd_dq_tc_kernel", "bf16"),
+                ("flash_bwd_dkv_kernel", "f32"), ("flash_bwd_dkv_tc_kernel", "bf16"))
 
 
 def emit(obj) -> None:
@@ -84,46 +86,24 @@ def nvidia_smi() -> str:
 # 1. build
 
 
-def ptxas_summary(report: str) -> list:
-    """Registers and spill bytes per kernel instantiation from -Xptxas -v."""
-    rows, name = [], None
-    for line in report.splitlines():
-        m = re.search(r"Compiling entry function '(\S+)'", line)
-        if m:
-            sym = m.group(1)
-            kind = re.search(r"(flash_\w+?_kernel)", sym)
-            dim = re.search(r"Li(\d+)E", sym)
-            name = (kind.group(1) if kind else sym, "bf16" if "bfloat16" in sym else "f32",
-                    int(dim.group(1)) if dim else None)
-            spill = None
-        m = re.search(r"(\d+) bytes spill stores", line)
-        if m and name:
-            spill = int(m.group(1))
-        m = re.search(r"Used (\d+) registers", line)
-        if m and name:
-            rows.append({"kernel": name[0], "dtype": name[1], "d": name[2],
-                         "registers": int(m.group(1)), "spill_bytes": spill})
-            name = None
-    return rows
-
-
 def phase_build(torch):
     from ray_tpu_torch.ops import _build
     from ray_tpu_torch.ops.attention import KERNEL_HEAD_DIMS
 
     path, report = _build.build()
     lib = _build.library()
-    smem = {k: {d: getattr(lib, f"rtt_{k}_smem_bytes")(d) for d in KERNEL_HEAD_DIMS}
-            for k in ("flash_fwd", "flash_fwd_tc", "flash_bwd_dq", "flash_bwd_dkv")}
-    regs = ptxas_summary(report["ptxas"])
+    smem = {k + tc: {d: getattr(lib, f"rtt_{k}{tc}_smem_bytes")(d) for d in KERNEL_HEAD_DIMS}
+            for k in SOURCES for tc in ("", "_tc")}
+    regs = _build.ptxas_summary(report["ptxas"])
     got = sorted((r["kernel"], r["dtype"], r["d"]) for r in regs)
     want = sorted((k, dt, d) for k, dt in INSTANTIATED for d in KERNEL_HEAD_DIMS)
     check(got == want, f"ptxas reported {got}, expected {want}")
-    tc128 = next(r for r in regs if r["kernel"] == "flash_fwd_tc_kernel" and r["d"] == 128)
+    tc128 = {r["kernel"]: r for r in regs if r["kernel"].endswith("_tc_kernel") and r["d"] == 128}
     emit({"phase": "build", "arch": "sm_90a", "library": path.name,
           "seconds": report["seconds"], "cached": report["cached"],
-          "dynamic_smem_bytes": smem, "fwd_tc_d128": tc128, "ptxas": regs})
-    check(tc128["spill_bytes"] == 0, f"tensor-core forward spills at d=128: {tc128}")
+          "dynamic_smem_bytes": smem, "tc_d128": tc128, "ptxas": regs})
+    for r in tc128.values():
+        check(r["spill_bytes"] == 0, f"tensor-core kernel spills at d=128: {r}")
 
 
 # ---------------------------------------------------------------------------
@@ -166,23 +146,12 @@ def phase_reference(K, L):
 # 4. times
 
 
-def time_ms(torch, fn, iters, warmup=3) -> float:
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters
-
-
 def bound_ms(kernel, b, h, hk, s, d, dtype, causal) -> tuple:
     """The least time for the same work on this card: matmul FLOPs over the
     dtype's peak vs bytes (each input read once, each output written once)
-    over HBM bandwidth. The score pairs counted are the ones the mask keeps."""
+    over HBM bandwidth. The score pairs counted are the ones the mask keeps.
+    ``flash_bwd`` is the whole backward function, as one SDPA backward call
+    computes it: dq, dk and dv from 5 products (S and dP once each)."""
     pairs = s * (s + 1) // 2 if causal else s * s
     esz = 2 if dtype == "bfloat16" else 4
     q_bytes, kv_bytes, row_bytes = b * h * s * d * esz, b * hk * s * d * esz, b * h * s * 4
@@ -190,6 +159,7 @@ def bound_ms(kernel, b, h, hk, s, d, dtype, causal) -> tuple:
         "flash_fwd": (2, q_bytes + 2 * kv_bytes + q_bytes + row_bytes),
         "flash_bwd_dq": (3, 2 * q_bytes + 2 * kv_bytes + 2 * row_bytes + q_bytes),
         "flash_bwd_dkv": (4, 2 * q_bytes + 2 * kv_bytes + 2 * row_bytes + 2 * kv_bytes),
+        "flash_bwd": (5, 2 * q_bytes + 2 * kv_bytes + 2 * row_bytes + q_bytes + 2 * kv_bytes),
     }[kernel]
     flops = 2 * n_matmuls * b * h * pairs * d
     t_ops, t_bytes = flops / PEAK_FLOPS[dtype], nbytes / PEAK_BYTES
@@ -222,20 +192,28 @@ def phase_times(torch, K, A):
     q4, k4, v4 = (t.reshape(shape4).detach().requires_grad_() for t in (q, k, v))
     do4 = do.reshape(shape4)
     o4 = F.scaled_dot_product_attention(q4, k4, v4, is_causal=causal)
-    lib_fwd = time_ms(torch, lambda: F.scaled_dot_product_attention(q4, k4, v4, is_causal=causal),
-                      20)
-    lib_bwd = time_ms(torch, lambda: torch.autograd.grad(o4, (q4, k4, v4), do4,
-                                                         retain_graph=True), 20)
+    lib_fwd = K.time_ms(lambda: F.scaled_dot_product_attention(q4, k4, v4, is_causal=causal))
+    lib_bwd = K.time_ms(lambda: torch.autograd.grad(o4, (q4, k4, v4), do4, retain_graph=True))
     library = {"flash_fwd": lib_fwd, "flash_bwd_dq": lib_bwd, "flash_bwd_dkv": lib_bwd}
     times = {}
     for name in kernel_fns:
-        kms = time_ms(torch, kernel_fns[name], 20)
-        pms = time_ms(torch, plain_fns[name], 5, warmup=1)
+        kms = K.time_ms(kernel_fns[name])
+        pms = K.time_ms(plain_fns[name], 5, warmup=1)
         bms, by, flops, nbytes = bound_ms(name, c["b"], h, hk, c["s"], c["d"], c["dtype"], causal)
         times[name] = {"ms": kms, "plain_ms": pms, "bound_ms": bms, "bound_by": by,
                        "library_ms": library[name]}
         emit({"phase": "times", "kernel": name, "shape": c, "flops": flops, "bytes": nbytes,
               **times[name], "tflops": flops / kms / 1e9})
+    # like for like: one SDPA backward call computes dq, dk and dv together,
+    # so the pair is held to that function's bound
+    pair = {k: sum(times[n][k] for n in ("flash_bwd_dq", "flash_bwd_dkv"))
+            for k in ("ms", "plain_ms")}
+    bms, by, flops, nbytes = bound_ms("flash_bwd", c["b"], h, hk, c["s"], c["d"], c["dtype"],
+                                      causal)
+    emit({"phase": "times", "kernels": "flash_bwd_dq + flash_bwd_dkv", "shape": c, **pair,
+          "bound_ms": bms, "bound_by": by, "flops": flops, "bytes": nbytes,
+          "tflops": flops / pair["ms"] / 1e9, "library_ms": lib_bwd,
+          "ms_over_bound": pair["ms"] / bms, "ms_over_library": pair["ms"] / lib_bwd})
     return times
 
 
@@ -265,23 +243,23 @@ def phase_slice(torch, A, L, smi: str):
     torch.cuda.synchronize()
     elapsed = time.perf_counter() - t0
     launches = {fn.__name__: fn.launches for fn in A.KERNELS}  # read just after
-    fwd_routes = dict(A.flash_fwd.route_launches)
+    routes = {fn.__name__: dict(fn.route_launches) for fn in A.KERNELS}
 
     steps = 1 + steps_timed
     check(all(math.isfinite(x) for x in losses), f"losses finite: {losses}")
     check(losses[-1] < losses[0], f"loss falls: {losses}")
     for name, n in launches.items():
         check(n == n_layers * steps, f"{name} launched {n} times, expected {n_layers * steps}")
-    check(fwd_routes == {"tensor_core": n_layers * steps, "cuda_core": 0},
-          f"bf16 forward launches by route {fwd_routes}: all must take the tensor cores")
+        check(routes[name] == {"tensor_core": n_layers * steps, "cuda_core": 0},
+              f"bf16 {name} launches by route {routes[name]}: all must take the tensor cores")
     step_s = elapsed / steps_timed
     emit({"phase": "slice", "config": f"LlamaConfig.llama2_7b(n_layers={n_layers})",
           "reduced": [f"n_layers 32 -> {n_layers}"], "params": L.param_count(cfg),
           "batch": batch, "seq": seq, "dtype": "bfloat16", "optimizer": f"adamw(lr={lr})",
           "losses": losses, "step_ms": 1e3 * step_s, "tokens_per_s": batch * seq / step_s,
           "max_memory_allocated_bytes": torch.cuda.max_memory_allocated(),
-          "launches": launches, "fwd_launches_by_route": fwd_routes, "nvidia_smi": smi})
-    return launches, fwd_routes
+          "launches": launches, "launches_by_route": routes, "nvidia_smi": smi})
+    return launches, routes
 
 
 def main() -> int:
@@ -306,12 +284,12 @@ def main() -> int:
     errs = phase_parity(K, A)
     phase_reference(K, L)
     times = phase_times(torch, K, A)
-    launches, fwd_routes = phase_slice(torch, A, L, smi)
+    launches, routes = phase_slice(torch, A, L, smi)
     emit({"kernels": [
         {"name": k, "route": "cuda", "source": SOURCES[k],
          "replaces": TPU_KERNELS[k][1], "replaces_fn": TPU_KERNELS[k][0],
          "launches": launches[k], "max_abs_err": errs[k], **times[k],
-         **({"launches_by_route": fwd_routes} if k == "flash_fwd" else {})}
+         "launches_by_route": routes[k]}
         for k in SOURCES
     ]})
     print(smi, flush=True)

@@ -14,6 +14,7 @@ import ctypes
 import functools
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import time
@@ -35,7 +36,9 @@ SIGNATURES = {
     "rtt_flash_fwd_smem_bytes": [_I],
     "rtt_flash_fwd_tc_smem_bytes": [_I],
     "rtt_flash_bwd_dq_smem_bytes": [_I],
+    "rtt_flash_bwd_dq_tc_smem_bytes": [_I],
     "rtt_flash_bwd_dkv_smem_bytes": [_I],
+    "rtt_flash_bwd_dkv_tc_smem_bytes": [_I],
 }
 
 
@@ -117,3 +120,26 @@ def load(path: Path) -> ctypes.CDLL:
 def library() -> ctypes.CDLL:
     """The loaded kernel library (built on first call)."""
     return load(build()[0])
+
+
+def ptxas_summary(report: str) -> list:
+    """Registers and spill bytes per kernel instantiation from -Xptxas -v."""
+    rows, name = [], None
+    for line in report.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            sym = m.group(1)
+            kind = re.search(r"(flash_\w+?_kernel)", sym)
+            dim = re.search(r"Li(\d+)E", sym)
+            name = (kind.group(1) if kind else sym, "bf16" if "bfloat16" in sym else "f32",
+                    int(dim.group(1)) if dim else None)
+            spill = None
+        m = re.search(r"(\d+) bytes spill stores", line)
+        if m and name:
+            spill = int(m.group(1))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name:
+            rows.append({"kernel": name[0], "dtype": name[1], "d": name[2],
+                         "registers": int(m.group(1)), "spill_bytes": spill})
+            name = None
+    return rows

@@ -11,9 +11,11 @@ kernel (wrapper here)         replaces (``ray_tpu/ops/attention.py``)
 ``flash_bwd_dkv``             ``_bwd_dkv_kernel`` via ``_flash_bwd``
 ============================  ===========================================
 
-``flash_fwd`` has two kernels, picked by dtype (``fwd_route``): bf16 runs
-on the tensor cores (``flash_fwd_tc.cu``), f32 on the CUDA cores
-(``flash_fwd.cu``); ``flash_fwd.route_launches`` counts each.
+Each wrapper has two kernels, picked by dtype (``kernel_route``): bf16 runs
+on the tensor cores (``flash_fwd_tc.cu``, ``flash_bwd_dq_tc.cu``,
+``flash_bwd_dkv_tc.cu``), f32 on the CUDA cores (``flash_fwd.cu``,
+``flash_bwd_dq.cu``, ``flash_bwd_dkv.cu``); each wrapper's
+``route_launches`` counts the launches of each.
 
 Each wrapper launches its kernel for a CUDA tensor and counts the launch in
 its ``launches`` attribute; for a CPU tensor it runs the kernel's plain
@@ -216,15 +218,35 @@ def _check_rows(lse, delta, q):
             raise ValueError(f"{name} must be contiguous f32 {want} on {q.device}")
 
 
-def fwd_route(dtype: torch.dtype) -> str:
-    """The forward kernel a dtype takes (``rtt_flash_fwd`` picks by the same
-    rule): bf16 runs on the tensor cores (``flash_fwd_tc.cu``), f32 on the
-    CUDA cores (``flash_fwd.cu``), since a tensor-core f32 product is TF32."""
+def kernel_route(dtype: torch.dtype) -> str:
+    """The kernel a dtype takes, one rule for all three wrappers (each C
+    entry point, ``rtt_flash_{fwd,bwd_dq,bwd_dkv}``, picks by it): bf16 runs
+    on the tensor cores (``*_tc.cu``), f32 on the CUDA cores, since a
+    tensor-core f32 product is TF32."""
     if dtype == torch.bfloat16:
         return "tensor_core"
     if dtype == torch.float32:
         return "cuda_core"
-    raise ValueError(f"flash_fwd: dtype {dtype} unsupported (float32, bfloat16)")
+    raise ValueError(f"dtype {dtype} unsupported (float32, bfloat16)")
+
+
+fwd_route = kernel_route
+
+
+def _route(name: str, tensors, d: int) -> tuple:
+    """Check a wrapper's inputs; return its dtype code and route. The
+    tensor-core kernels copy 16-byte chunks, so their inputs must start on
+    a 16-byte boundary."""
+    dtype = _check_kernel_inputs(name, tensors, d)
+    route = kernel_route(tensors[0].dtype)
+    if route == "tensor_core" and any(x.data_ptr() % 16 for x in tensors):
+        raise ValueError(f"{name}: bf16 inputs must start on a 16-byte boundary")
+    return dtype, route
+
+
+def _count(fn, route: str) -> None:
+    fn.launches += 1
+    fn.route_launches[route] += 1
 
 
 def flash_fwd(q, k, v, *, causal: bool, sm_scale: float, h: int, hk: int):
@@ -234,16 +256,12 @@ def flash_fwd(q, k, v, *, causal: bool, sm_scale: float, h: int, hk: int):
     if q.device.type == "cpu":
         return _fwd_plain(q, k, v, causal, sm_scale, h, hk)
     bh, sq, d = q.shape
-    dtype = _check_kernel_inputs("flash_fwd", (q, k, v), d)
-    route = fwd_route(q.dtype)
-    if route == "tensor_core" and any(x.data_ptr() % 16 for x in (q, k, v)):
-        raise ValueError("flash_fwd: bf16 inputs must start on a 16-byte boundary")
+    dtype, route = _route("flash_fwd", (q, k, v), d)
     o = torch.empty_like(q)
     lse = torch.empty(bh, sq, 1, dtype=torch.float32, device=q.device)
     _launch("rtt_flash_fwd", (q, k, v, o, lse),
             bh, h, hk, sq, k.shape[1], d, float(sm_scale), int(causal), dtype)
-    flash_fwd.launches += 1
-    flash_fwd.route_launches[route] += 1
+    _count(flash_fwd, route)
     return o, lse
 
 
@@ -253,12 +271,12 @@ def flash_bwd_dq(q, k, v, do, lse, delta, *, causal: bool, sm_scale: float, h: i
     if q.device.type == "cpu":
         return _bwd_dq_plain(q, k, v, do, lse, delta, causal, sm_scale, h, hk)
     bh, sq, d = q.shape
-    dtype = _check_kernel_inputs("flash_bwd_dq", (q, k, v, do), d)
+    dtype, route = _route("flash_bwd_dq", (q, k, v, do), d)
     _check_rows(lse, delta, q)
     dq = torch.empty_like(q)
     _launch("rtt_flash_bwd_dq", (q, k, v, do, lse, delta, dq),
             bh, h, hk, sq, k.shape[1], d, float(sm_scale), int(causal), dtype)
-    flash_bwd_dq.launches += 1
+    _count(flash_bwd_dq, route)
     return dq
 
 
@@ -269,26 +287,26 @@ def flash_bwd_dkv(q, k, v, do, lse, delta, *, causal: bool, sm_scale: float, h: 
     if q.device.type == "cpu":
         return _bwd_dkv_plain(q, k, v, do, lse, delta, causal, sm_scale, h, hk)
     bh, sq, d = q.shape
-    dtype = _check_kernel_inputs("flash_bwd_dkv", (q, k, v, do), d)
+    dtype, route = _route("flash_bwd_dkv", (q, k, v, do), d)
     _check_rows(lse, delta, q)
     dk, dv = torch.empty_like(k), torch.empty_like(v)
     _launch("rtt_flash_bwd_dkv", (q, k, v, do, lse, delta, dk, dv),
             k.shape[0], h, hk, sq, k.shape[1], d, float(sm_scale), int(causal), dtype)
-    flash_bwd_dkv.launches += 1
+    _count(flash_bwd_dkv, route)
     return dk, dv
 
 
-flash_fwd.launches = 0
-flash_fwd.route_launches = {"tensor_core": 0, "cuda_core": 0}
-flash_bwd_dq.launches = 0
-flash_bwd_dkv.launches = 0
 KERNELS = (flash_fwd, flash_bwd_dq, flash_bwd_dkv)
 
 
 def reset_launch_counts() -> None:
+    """Set every wrapper's ``launches`` and ``route_launches`` to 0."""
     for fn in KERNELS:
         fn.launches = 0
-    flash_fwd.route_launches = dict.fromkeys(flash_fwd.route_launches, 0)
+        fn.route_launches = {"tensor_core": 0, "cuda_core": 0}
+
+
+reset_launch_counts()
 
 
 # ---------------------------------------------------------------------------

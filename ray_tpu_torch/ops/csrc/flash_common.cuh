@@ -1,15 +1,14 @@
-// Shared pieces of the three flash-attention kernels (flash_fwd.cu,
-// flash_bwd_dq.cu, flash_bwd_dkv.cu).
+// Shared pieces of the three f32 flash-attention kernels on the CUDA cores
+// (flash_fwd.cu, flash_bwd_dq.cu, flash_bwd_dkv.cu); bf16 runs on the
+// tensor-core kernels (*_tc.cu, helpers in flash_mma.cuh).
 //
 // Design (all three kernels): one thread block of 256 threads (16 x 16)
 // owns a 64-row tile of its output and walks the other operand's 64-row
 // tiles in a loop inside the block -- the loop takes the place of the
 // Pallas kernels' sequential "arbitrary" grid axis, whose sum was carried
-// in VMEM scratch. Tiles are staged in shared memory as f32 (converted
-// once on load; a bf16 x bf16 product is exact in f32, so this is the
-// arithmetic the TPU's MXU does with preferred_element_type=f32), rows
-// padded to D+1 floats so that the strided per-thread access below is
-// free of bank conflicts. Each thread computes a 4 x 4 micro-tile of
+// in VMEM scratch. Tiles are staged in shared memory, rows padded to D+1
+// floats so that the strided per-thread access below is free of bank
+// conflicts. Each thread computes a 4 x 4 micro-tile of
 // every score-shaped product (rows ty+16i, columns tx+16j) and a
 // 4 x D/16 micro-tile of every output-shaped product (columns tx+16q),
 // with scalar FMA and f32 accumulators. Ragged edges are masked in the
@@ -17,11 +16,10 @@
 //
 // Bound on the H100: the work is matrix products (compute-bound at the
 // model's shapes: 4*S^2*d/2 causal FLOPs against 4*S*d*2 bytes per head).
-// Scalar FMA on the CUDA cores reaches at most 67 TFLOP/s of the card's
-// 989 bf16 TFLOP/s; tensor cores (mma.sync / wgmma) are later work.
+// Scalar FMA on the CUDA cores reaches at most 67 TFLOP/s; a tensor-core
+// f32 product would be TF32, which cannot meet the f32 parity bound.
 #pragma once
 
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -32,21 +30,6 @@ constexpr int BN = 64;    // rows of each streamed tile
 constexpr int NT = 256;   // threads per block: 16 (tx) x 16 (ty)
 constexpr int LDP = BN + 1;  // padded row length of a score tile in smem
 constexpr float NEG_INF = -1e30f;  // finite mask value, as _NEG_INF in the JAX op
-
-__device__ __forceinline__ float to_f(float x) { return x; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 x) { return __bfloat162float(x); }
-
-template <typename T> __device__ __forceinline__ T from_f(float x);
-template <> __device__ __forceinline__ float from_f<float>(float x) { return x; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);  // round to nearest even, as XLA's convert
-}
-
-// Round through the storage dtype: the `.astype(T)` the Pallas kernels
-// apply to p and dS before their second matmul.
-template <typename T> __device__ __forceinline__ float round_to(float x) {
-  return to_f(from_f<T>(x));
-}
 
 // Sum / max over the 16 lanes (tx = 0..15) that share one ty.
 __device__ __forceinline__ float sum16(float v) {
@@ -61,16 +44,16 @@ __device__ __forceinline__ float max16(float v) {
 }
 
 // Stage rows [row0, row0 + ROWS) of a row-major [nrows, D] matrix in smem
-// as f32 [ROWS][D + 1]; rows past nrows are zero. Consecutive threads read
+// as [ROWS][D + 1]; rows past nrows are zero. Consecutive threads read
 // consecutive elements of a row (coalesced).
-template <typename T, int D, int ROWS>
-__device__ __forceinline__ void load_tile(float* __restrict__ dst, const T* __restrict__ src,
+template <int D, int ROWS>
+__device__ __forceinline__ void load_tile(float* __restrict__ dst, const float* __restrict__ src,
                                           int row0, int nrows) {
   constexpr int LD = D + 1;
   for (int idx = threadIdx.x; idx < ROWS * D; idx += NT) {
     const int r = idx / D, c = idx % D;
     const int gr = row0 + r;
-    dst[r * LD + c] = gr < nrows ? to_f(src[(size_t)gr * D + c]) : 0.f;
+    dst[r * LD + c] = gr < nrows ? src[(size_t)gr * D + c] : 0.f;
   }
 }
 
@@ -133,25 +116,15 @@ inline cudaError_t launch(Kernel kernel, dim3 grid, size_t smem, void* stream, A
 
 }  // namespace rtt
 
-// dtype code 0 = float32, 1 = bfloat16; head_dim in {16, 32, 64, 128}.
-#define RTT_DISPATCH(DTYPE, HEAD_DIM, LAUNCH)                                  \
+// Return LAUNCH with D = head_dim in {16, 32, 64, 128} (any other head_dim
+// returns cudaErrorInvalidValue).
+#define RTT_DISPATCH_D(HEAD_DIM, LAUNCH)                                       \
   do {                                                                         \
-    if ((DTYPE) == 0) {                                                        \
-      using T = float;                                                         \
-      switch (HEAD_DIM) {                                                      \
-        case 16: { constexpr int D = 16; return (int)(LAUNCH); }               \
-        case 32: { constexpr int D = 32; return (int)(LAUNCH); }               \
-        case 64: { constexpr int D = 64; return (int)(LAUNCH); }               \
-        case 128: { constexpr int D = 128; return (int)(LAUNCH); }             \
-      }                                                                        \
-    } else if ((DTYPE) == 1) {                                                 \
-      using T = __nv_bfloat16;                                                 \
-      switch (HEAD_DIM) {                                                      \
-        case 16: { constexpr int D = 16; return (int)(LAUNCH); }               \
-        case 32: { constexpr int D = 32; return (int)(LAUNCH); }               \
-        case 64: { constexpr int D = 64; return (int)(LAUNCH); }               \
-        case 128: { constexpr int D = 128; return (int)(LAUNCH); }             \
-      }                                                                        \
+    switch (HEAD_DIM) {                                                        \
+      case 16: { constexpr int D = 16; return (int)(LAUNCH); }                 \
+      case 32: { constexpr int D = 32; return (int)(LAUNCH); }                 \
+      case 64: { constexpr int D = 64; return (int)(LAUNCH); }                 \
+      case 128: { constexpr int D = 128; return (int)(LAUNCH); }               \
     }                                                                          \
     return (int)cudaErrorInvalidValue;                                         \
   } while (0)

@@ -5,10 +5,10 @@
 // the tensor-core kernel of flash_fwd_tc.cu; f32 stays here, on the CUDA
 // cores, because a tensor-core f32 product is TF32 and cannot meet the f32
 // parity bound. Computes, for every (batch*head, query row),
-//   o   = softmax(q.K^T * scale) . V       (q's dtype)
+//   o   = softmax(q.K^T * scale) . V
 //   lse = m + log(l)                       (f32, saved for the backward)
-// keeping (m, l, acc) in f32 registers; p is rounded to V's dtype before
-// P.V, and rows with l = 0 are clamped at 1e-30, as the Pallas kernel does.
+// keeping (m, l, acc) in registers; rows with l = 0 are clamped at 1e-30,
+// as the Pallas kernel does.
 //
 // Grid (ceil(Sq/64), b*h); one block owns 64 query rows and loops over the
 // K/V tiles up to the causal diagonal. GQA: the block reads the K/V of
@@ -28,11 +28,11 @@ constexpr size_t fwd_smem_bytes() {
   return sizeof(float) * ((BM + 2 * BN) * (D + 1) + BM * LDP);
 }
 
-template <typename T, int D>
+template <int D>
 __global__ void __launch_bounds__(NT)
-flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-                 T* __restrict__ o, float* __restrict__ lse, int h, int hk, int sq, int sk,
-                 float scale, int causal) {
+flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                 const float* __restrict__ v, float* __restrict__ o, float* __restrict__ lse,
+                 int h, int hk, int sq, int sk, float scale, int causal) {
   extern __shared__ float smem[];
   constexpr int LD = D + 1, DQ = D / 16;
   float* Qs = smem;
@@ -44,10 +44,10 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
   const int bh = blockIdx.y;
   const int bkv = (bh / h) * hk + (bh % h) / (h / hk);
   const int q0 = blockIdx.x * BM;
-  const T* kp = k + (size_t)bkv * sk * D;
-  const T* vp = v + (size_t)bkv * sk * D;
+  const float* kp = k + (size_t)bkv * sk * D;
+  const float* vp = v + (size_t)bkv * sk * D;
 
-  load_tile<T, D, BM>(Qs, q + (size_t)bh * sq * D, q0, sq);
+  load_tile<D, BM>(Qs, q + (size_t)bh * sq * D, q0, sq);
 
   float m[4], l[4], acc[4][DQ];
 #pragma unroll
@@ -63,8 +63,8 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
   for (int kb = 0; kb < nkb; ++kb) {
     const int k0 = kb * BN;
     __syncthreads();  // the previous tile's readers of Ks/Vs/Ps are done
-    load_tile<T, D, BN>(Ks, kp, k0, sk);
-    load_tile<T, D, BN>(Vs, vp, k0, sk);
+    load_tile<D, BN>(Ks, kp, k0, sk);
+    load_tile<D, BN>(Vs, vp, k0, sk);
     __syncthreads();
 
     float s[4][4];
@@ -88,7 +88,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
       for (int j = 0; j < 4; ++j) {
         const float p = ok[j] ? expf(s[i][j] - m_new) : 0.f;
         rs += p;
-        Ps[(ty + 16 * i) * LDP + tx + 16 * j] = round_to<T>(p);
+        Ps[(ty + 16 * i) * LDP + tx + 16 * j] = p;
       }
       l[i] = alpha * l[i] + sum16(rs);
       m[i] = m_new;
@@ -104,21 +104,11 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
     const int qi = q0 + ty + 16 * i;
     if (qi >= sq) continue;
     const float lc = fmaxf(l[i], 1e-30f);
-    T* orow = o + ((size_t)bh * sq + qi) * D;
+    float* orow = o + ((size_t)bh * sq + qi) * D;
 #pragma unroll
-    for (int c = 0; c < DQ; ++c) orow[tx + 16 * c] = from_f<T>(acc[i][c] / lc);
+    for (int c = 0; c < DQ; ++c) orow[tx + 16 * c] = acc[i][c] / lc;
     if (tx == 0) lse[(size_t)bh * sq + qi] = m[i] + logf(lc);
   }
-}
-
-template <int D>
-int fwd_f32_launch(const void* q, const void* k, const void* v, void* o, void* lse, int bh, int h,
-                   int hk, int sq, int sk, float scale, int causal, void* stream) {
-  const dim3 grid((sq + BM - 1) / BM, bh);
-  return (int)launch(flash_fwd_kernel<float, D>, grid, fwd_smem_bytes<D>(), stream,
-                     static_cast<const float*>(q), static_cast<const float*>(k),
-                     static_cast<const float*>(v), static_cast<float*>(o),
-                     static_cast<float*>(lse), h, hk, sq, sk, scale, causal);
 }
 
 // flash_fwd_tc.cu: the bf16 kernel
@@ -135,13 +125,12 @@ extern "C" int rtt_flash_fwd(const void* q, const void* k, const void* v, void* 
   if (dtype == 1)
     return rtt::flash_fwd_tc(q, k, v, o, lse, bh, h, hk, sq, sk, head_dim, scale, causal, stream);
   if (dtype != 0) return (int)cudaErrorInvalidValue;
-  switch (head_dim) {
-    case 16: return rtt::fwd_f32_launch<16>(q, k, v, o, lse, bh, h, hk, sq, sk, scale, causal, stream);
-    case 32: return rtt::fwd_f32_launch<32>(q, k, v, o, lse, bh, h, hk, sq, sk, scale, causal, stream);
-    case 64: return rtt::fwd_f32_launch<64>(q, k, v, o, lse, bh, h, hk, sq, sk, scale, causal, stream);
-    case 128: return rtt::fwd_f32_launch<128>(q, k, v, o, lse, bh, h, hk, sq, sk, scale, causal, stream);
-  }
-  return (int)cudaErrorInvalidValue;
+  const dim3 grid((sq + rtt::BM - 1) / rtt::BM, bh);
+  RTT_DISPATCH_D(head_dim,
+                 rtt::launch(rtt::flash_fwd_kernel<D>, grid, rtt::fwd_smem_bytes<D>(), stream,
+                             static_cast<const float*>(q), static_cast<const float*>(k),
+                             static_cast<const float*>(v), static_cast<float*>(o),
+                             static_cast<float*>(lse), h, hk, sq, sk, scale, causal));
 }
 
 extern "C" int rtt_flash_fwd_smem_bytes(int head_dim) { RTT_SMEM_BYTES(rtt::fwd_smem_bytes, head_dim); }

@@ -48,22 +48,6 @@ constexpr size_t fwd_tc_smem_bytes() {
   return sizeof(__nv_bfloat16) * 2 * 2 * TC_BN * (D + 8);
 }
 
-// Rows [row0, row0 + ROWS) of a row-major [nrows, D] bf16 matrix into smem
-// [ROWS][D + 8] by 16-byte cp.async; rows at or past nrows are zeros.
-template <int D, int ROWS, int NTHREADS>
-__device__ __forceinline__ void cp_tile(__nv_bfloat16* dst, const __nv_bfloat16* src, int row0,
-                                        int nrows) {
-  constexpr int CH = D / 8;  // 16-byte chunks per row
-#pragma unroll
-  for (int it = 0; it < (ROWS * CH + NTHREADS - 1) / NTHREADS; ++it) {
-    const int i = it * NTHREADS + threadIdx.x;
-    if (ROWS * CH % NTHREADS != 0 && i >= ROWS * CH) break;
-    const int r = i / CH, c = i % CH, gr = row0 + r;
-    const bool ok = gr < nrows;
-    cp_async_16(dst + r * (D + 8) + c * 8, src + (size_t)(ok ? gr : 0) * D + c * 8, ok);
-  }
-}
-
 template <int D, int WARPS>
 __global__ void __launch_bounds__(32 * WARPS)
 flash_fwd_tc_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
@@ -98,8 +82,7 @@ flash_fwd_tc_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __
   __syncthreads();
   uint32_t qa[D / 16][4];
 #pragma unroll
-  for (int kc = 0; kc < D / 16; ++kc)
-    ldmatrix_x4(qa[kc], smem + STAGE + (16 * warp + (lane & 15)) * LDS + 16 * kc + (lane >> 4) * 8);
+  for (int kc = 0; kc < D / 16; ++kc) ld_a<LDS>(qa[kc], smem + STAGE, 16 * warp, 16 * kc);
   __syncthreads();
 
   const int qw0 = q0 + 16 * warp;  // this warp's first row
@@ -133,8 +116,7 @@ flash_fwd_tc_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __
 #pragma unroll
         for (int kc = 0; kc < D / 16; ++kc) {
           uint32_t kb4[4];
-          ldmatrix_x4(kb4, Ks + (16 * np + (lane & 7) + ((lane >> 4) << 3)) * LDS + 16 * kc +
-                               ((lane >> 3) & 1) * 8);
+          ld_bt<LDS>(kb4, Ks, 16 * np, 16 * kc);
           mma_bf16_16816(s[2 * np], qa[kc], kb4[0], kb4[1]);
           mma_bf16_16816(s[2 * np + 1], qa[kc], kb4[2], kb4[3]);
         }
@@ -191,8 +173,7 @@ flash_fwd_tc_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __
 #pragma unroll
         for (int dp = 0; dp < D / 16; ++dp) {
           uint32_t vb[4];
-          ldmatrix_x4_trans(vb, Vs + (16 * kc + (lane & 7) + ((lane >> 3) & 1) * 8) * LDS +
-                                    16 * dp + (lane >> 4) * 8);
+          ld_b<LDS>(vb, Vs, 16 * kc, 16 * dp);
           mma_bf16_16816(oacc[2 * dp], pa, vb[0], vb[1]);
           mma_bf16_16816(oacc[2 * dp + 1], pa, vb[2], vb[3]);
         }
@@ -202,26 +183,15 @@ flash_fwd_tc_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __
   }
   cp_async_wait<0>();
 
-  // o = acc / l through this warp's 16 rows of smem, then 16-byte stores
-  __nv_bfloat16* os = smem + 16 * warp * LDS;
+  // o = acc / l through this warp's 16 rows of stage 0, read by no one now
   float lc[2];
 #pragma unroll
   for (int r = 0; r < 2; ++r) lc[r] = fmaxf(quad_sum(lsum[r]), 1e-30f);
 #pragma unroll
   for (int j = 0; j < ND; ++j) {
-    *reinterpret_cast<uint32_t*>(os + g * LDS + 8 * j + 2 * t) =
-        pack_bf16x2(oacc[j][0] / lc[0], oacc[j][1] / lc[0]);
-    *reinterpret_cast<uint32_t*>(os + (g + 8) * LDS + 8 * j + 2 * t) =
-        pack_bf16x2(oacc[j][2] / lc[1], oacc[j][3] / lc[1]);
+    oacc[j][0] /= lc[0]; oacc[j][1] /= lc[0]; oacc[j][2] /= lc[1]; oacc[j][3] /= lc[1];
   }
-  __syncwarp();
-#pragma unroll
-  for (int i = lane; i < 16 * ND; i += 32) {
-    const int r = i / ND, c = i % ND;
-    if (qw0 + r < sq)
-      *reinterpret_cast<uint4*>(o + ((size_t)bh * sq + qw0 + r) * D + 8 * c) =
-          *reinterpret_cast<const uint4*>(os + r * LDS + 8 * c);
-  }
+  store_rows<D>(o + (size_t)bh * sq * D, qw0, sq, oacc, smem + 16 * warp * LDS);
   if (t == 0) {
 #pragma unroll
     for (int r = 0; r < 2; ++r)
@@ -246,13 +216,8 @@ int fwd_tc_launch(const void* q, const void* k, const void* v, void* o, void* ls
 // aligned (the wrapper checks).
 int flash_fwd_tc(const void* q, const void* k, const void* v, void* o, void* lse, int bh, int h,
                  int hk, int sq, int sk, int head_dim, float scale, int causal, void* stream) {
-  switch (head_dim) {
-    case 16: return fwd_tc_launch<16>(q, k, v, o, lse, bh, h, hk, sq, sk, scale, causal, stream);
-    case 32: return fwd_tc_launch<32>(q, k, v, o, lse, bh, h, hk, sq, sk, scale, causal, stream);
-    case 64: return fwd_tc_launch<64>(q, k, v, o, lse, bh, h, hk, sq, sk, scale, causal, stream);
-    case 128: return fwd_tc_launch<128>(q, k, v, o, lse, bh, h, hk, sq, sk, scale, causal, stream);
-  }
-  return (int)cudaErrorInvalidValue;
+  RTT_DISPATCH_D(head_dim, fwd_tc_launch<D>(q, k, v, o, lse, bh, h, hk, sq, sk, scale, causal,
+                                             stream));
 }
 
 }  // namespace rtt

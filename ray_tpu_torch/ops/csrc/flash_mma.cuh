@@ -42,6 +42,13 @@ __device__ __forceinline__ void cp_async_16(void* dst, const void* src, bool val
 __device__ __forceinline__ void cp_async_commit() {
   asm volatile("cp.async.commit_group;\n" ::: "memory");
 }
+// 4 bytes global -> shared (cp.async.cg takes 16 bytes only, so through
+// L1); zero with !valid. For f32 rows (lse, delta) of any length.
+__device__ __forceinline__ void cp_async_4(void* dst, const void* src, bool valid) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(smem_u32(dst)), "l"(src),
+               "r"(valid ? 4 : 0)
+               : "memory");
+}
 // Wait until at most N of this thread's committed groups are in flight.
 template <int N>
 __device__ __forceinline__ void cp_async_wait() {
@@ -62,6 +69,78 @@ __device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], const void* 
                : "r"(smem_u32(p)));
 }
 
+// Two f32 rounded to bf16 (to nearest even, as XLA's convert), lo in the
+// low half: the element of the lower column index, as A fragments want.
+__device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// Fragments of the 16 x 16 block at (row0, col0) of a row-major bf16 tile
+// in shared memory with a row stride of LDS elements:
+// ld_a:  the A operand (rows = M, columns = K);
+// ld_bt: the B operand of A.B^T (rows = N, columns = K): r[0], r[1] are
+//        b0, b1 of the n8 tile of rows row0..+7, r[2], r[3] of rows +8..+15;
+// ld_b:  the B operand of A.B (rows = K, columns = N), by ldmatrix.trans:
+//        r[0], r[1] for columns col0..+7, r[2], r[3] for columns +8..+15.
+template <int LDS>
+__device__ __forceinline__ void ld_a(uint32_t (&r)[4], const __nv_bfloat16* s, int row0, int col0) {
+  const int lane = threadIdx.x % 32;
+  ldmatrix_x4(r, s + (row0 + (lane & 15)) * LDS + col0 + (lane >> 4) * 8);
+}
+template <int LDS>
+__device__ __forceinline__ void ld_bt(uint32_t (&r)[4], const __nv_bfloat16* s, int row0,
+                                      int col0) {
+  const int lane = threadIdx.x % 32;
+  ldmatrix_x4(r, s + (row0 + (lane & 7) + ((lane >> 4) << 3)) * LDS + col0 + ((lane >> 3) & 1) * 8);
+}
+template <int LDS>
+__device__ __forceinline__ void ld_b(uint32_t (&r)[4], const __nv_bfloat16* s, int row0, int col0) {
+  const int lane = threadIdx.x % 32;
+  ldmatrix_x4_trans(r, s + (row0 + (lane & 7) + ((lane >> 3) & 1) * 8) * LDS + col0 + (lane >> 4) * 8);
+}
+
+// Rows [row0, row0 + ROWS) of a row-major [nrows, D] bf16 matrix into smem
+// [ROWS][D + 8] by 16-byte cp.async; rows at or past nrows are zeros.
+template <int D, int ROWS, int NTHREADS>
+__device__ __forceinline__ void cp_tile(__nv_bfloat16* dst, const __nv_bfloat16* src, int row0,
+                                        int nrows) {
+  constexpr int CH = D / 8;  // 16-byte chunks per row
+#pragma unroll
+  for (int it = 0; it < (ROWS * CH + NTHREADS - 1) / NTHREADS; ++it) {
+    const int i = it * NTHREADS + threadIdx.x;
+    if (ROWS * CH % NTHREADS != 0 && i >= ROWS * CH) break;
+    const int r = i / CH, c = i % CH, gr = row0 + r;
+    const bool ok = gr < nrows;
+    cp_async_16(dst + r * (D + 8) + c * 8, src + (size_t)(ok ? gr : 0) * D + c * 8, ok);
+  }
+}
+
+// A warp's 16 x D f32 accumulator (C fragments, n8 tile j = columns 8j..)
+// rounded to bf16 through its own 16 rows of smem (stride D + 8), then out
+// as 16-byte stores to rows row0.. of a row-major [nrows, D] matrix.
+template <int D>
+__device__ __forceinline__ void store_rows(__nv_bfloat16* dst, int row0, int nrows,
+                                           const float (&acc)[D / 8][4], __nv_bfloat16* stage) {
+  constexpr int LDS = D + 8, ND = D / 8;
+  const int lane = threadIdx.x % 32, g = lane / 4, t = lane % 4;
+#pragma unroll
+  for (int j = 0; j < ND; ++j) {
+    *reinterpret_cast<uint32_t*>(stage + g * LDS + 8 * j + 2 * t) =
+        pack_bf16x2(acc[j][0], acc[j][1]);
+    *reinterpret_cast<uint32_t*>(stage + (g + 8) * LDS + 8 * j + 2 * t) =
+        pack_bf16x2(acc[j][2], acc[j][3]);
+  }
+  __syncwarp();
+#pragma unroll
+  for (int i = lane; i < 16 * ND; i += 32) {
+    const int r = i / ND, c = i % ND;
+    if (row0 + r < nrows)
+      *reinterpret_cast<uint4*>(dst + (size_t)(row0 + r) * D + 8 * c) =
+          *reinterpret_cast<const uint4*>(stage + r * LDS + 8 * c);
+  }
+}
+
 // c += a . b on the tensor cores: bf16 operands, products exact, f32 sums.
 __device__ __forceinline__ void mma_bf16_16816(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
                                                uint32_t b1) {
@@ -70,13 +149,6 @@ __device__ __forceinline__ void mma_bf16_16816(float (&c)[4], const uint32_t (&a
       "{%8, %9}, {%0, %1, %2, %3};\n"
       : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// Two f32 rounded to bf16 (to nearest even, as XLA's convert), lo in the
-// low half: the element of the lower column index, as A fragments want.
-__device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
-  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const uint32_t*>(&v);
 }
 
 // Max / sum over the 4 lanes of a quad: the lanes holding one C row.

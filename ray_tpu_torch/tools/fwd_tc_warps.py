@@ -28,18 +28,6 @@ WARPS = (4, 8)
 _DECL = re.compile(r"constexpr int TC_WARPS = \d+;")
 
 
-def _ms(fn, iters=20) -> float:
-    fn()
-    torch.cuda.synchronize()
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters
-
-
 def main() -> int:
     if not torch.cuda.is_available():
         print("fwd_tc_warps: no CUDA device", file=sys.stderr)
@@ -63,7 +51,7 @@ def main() -> int:
                 readings[w] = K.compare(A.flash_fwd(q, k, v, **kw)[0], plain, c["dtype"])
         for w in (*WARPS, *reversed(WARPS)):
             with K.use_library(libs[w]):
-                times[w].append(_ms(lambda: A.flash_fwd(q, k, v, **kw)))
+                times[w].append(K.time_ms(lambda: A.flash_fwd(q, k, v, **kw)))
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, timeout=60).stdout.strip()
     for w in WARPS:

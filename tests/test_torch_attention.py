@@ -226,7 +226,8 @@ def test_cpu_path_counts_no_launch():
     q, k, v = make_qkv(s=128)
     _grads_torch(q, k, v, True, "auto")
     assert [fn.launches for fn in tattn.KERNELS] == [0, 0, 0]
-    assert tattn.flash_fwd.route_launches == {"tensor_core": 0, "cuda_core": 0}
+    for fn in tattn.KERNELS:
+        assert fn.route_launches == {"tensor_core": 0, "cuda_core": 0}, fn.__name__
 
 
 def test_fwd_route_by_dtype():
@@ -236,6 +237,17 @@ def test_fwd_route_by_dtype():
     assert tattn.fwd_route(torch.float32) == "cuda_core"
     with pytest.raises(ValueError, match="unsupported"):
         tattn.fwd_route(torch.float16)
+
+
+@pytest.mark.parametrize("wrapper", ["flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"])
+def test_kernel_route_by_dtype(wrapper):
+    """One rule (``kernel_route``, which ``fwd_route`` is) names the route
+    of all three kernels by dtype, and every wrapper counts its launches
+    under exactly the routes the rule names."""
+    assert tattn.fwd_route is tattn.kernel_route
+    routes = {dt: tattn.kernel_route(dt) for dt in tattn._KERNEL_DTYPES}
+    assert routes == {torch.bfloat16: "tensor_core", torch.float32: "cuda_core"}
+    assert set(getattr(tattn, wrapper).route_launches) == set(routes.values())
 
 
 # ---------------------------------------------------------------------------
@@ -346,9 +358,9 @@ def test_cuda_kernels_match_plain(cuda_device, dtype, causal, hk, s, d):
     """Each kernel against its plain version on the card, by
     ``kernel_check.compare``: every element within TOL[dtype][kind] of its
     own size and its row's (bf16: about one ulp of rounding of outputs and
-    p/dS; f32: summation order). bf16 runs the tensor-core forward, f32
-    the CUDA-core one, at every instantiated head_dim, with ragged S and
-    GQA."""
+    p/dS; f32: summation order). bf16 runs the three tensor-core kernels,
+    f32 the CUDA-core ones, at every instantiated head_dim, with ragged S
+    and GQA."""
     readings = kernel_check.parity_case(
         tattn, dict(b=2, h=4, hk=hk, s=s, d=d, dtype=dtype, causal=causal))
     for what, r in readings.items():
@@ -361,11 +373,13 @@ def test_cuda_autograd_counts_launches(cuda_device):
     q = torch.randn(1, 2, 128, 32, device=cuda_device, requires_grad=True)
     tattn.flash_attention(q, q, q, causal=True, impl="pallas").sum().backward()
     assert [fn.launches for fn in tattn.KERNELS] == [1, 1, 1]
-    assert tattn.flash_fwd.route_launches == {"tensor_core": 0, "cuda_core": 1}
+    for fn in tattn.KERNELS:
+        assert fn.route_launches == {"tensor_core": 0, "cuda_core": 1}, fn.__name__
     qb = q.detach().to(torch.bfloat16).requires_grad_()
     tattn.flash_attention(qb, qb, qb, causal=True, impl="pallas").sum().backward()
     assert [fn.launches for fn in tattn.KERNELS] == [2, 2, 2]
-    assert tattn.flash_fwd.route_launches == {"tensor_core": 1, "cuda_core": 1}
+    for fn in tattn.KERNELS:
+        assert fn.route_launches == {"tensor_core": 1, "cuda_core": 1}, fn.__name__
 
 
 @pytest.mark.cuda
@@ -376,6 +390,23 @@ def test_cuda_fwd_refuses_misaligned_bf16(cuda_device):
     q = buf[1:].view(2, 128, 64)
     with pytest.raises(ValueError, match="16-byte"):
         tattn.flash_fwd(q, q, q, causal=True, sm_scale=0.125, h=2, hk=2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("wrapper", ["flash_bwd_dq", "flash_bwd_dkv"])
+def test_cuda_bwd_refuses_misaligned_bf16(cuda_device, wrapper):
+    """The tensor-core backward kernels copy 16-byte chunks of q, k, v and
+    dO: a bf16 view of any of them that starts off a 16-byte boundary is
+    refused, not read misaligned."""
+    buf = torch.randn(2 * 128 * 64 + 1, device=cuda_device).to(torch.bfloat16)
+    bad = buf[1:].view(2, 128, 64)
+    ok = torch.randn(2, 128, 64, device=cuda_device).to(torch.bfloat16)
+    rows = torch.zeros(2, 128, 1, device=cuda_device)
+    for i in range(4):
+        args = [ok] * 4
+        args[i] = bad
+        with pytest.raises(ValueError, match="16-byte"):
+            getattr(tattn, wrapper)(*args, rows, rows, causal=True, sm_scale=0.125, h=2, hk=2)
 
 
 def test_kernel_build_names_library_by_source_hash(tmp_path, monkeypatch):
@@ -448,6 +479,36 @@ def test_build_signatures_match_extern_c_sources():
         assert types == _build.SIGNATURES[name], name
 
 
+@pytest.mark.parametrize("wrapper", ["flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"])
+def test_extern_c_routes_dtypes_as_kernel_route(wrapper):
+    """``rtt_<wrapper>`` hands the bf16 code to the tensor-core kernel of
+    ``<wrapper>_tc.cu`` and the f32 code to the CUDA-core kernel of
+    ``<wrapper>.cu``, refusing any other, as ``kernel_route`` names the
+    routes and ``_KERNEL_DTYPES`` the codes (parsed from the sources)."""
+    import re
+
+    from ray_tpu_torch.ops import _build
+
+    code = tattn._KERNEL_DTYPES
+    src = (_build.CSRC / f"{wrapper}.cu").read_text()
+    body = src[src.index(f'extern "C" int rtt_{wrapper}('):]
+    body = body[:body.index("\n}\n")]
+    bf16 = re.search(r"if \(dtype == (\d)\)\s+return rtt::(\w+)\(", body)
+    assert bf16 and int(bf16.group(1)) == code[torch.bfloat16]
+    assert tattn.kernel_route(torch.bfloat16) == "tensor_core"
+    assert bf16.group(2) == f"{wrapper}_tc"
+    tc_src = (_build.CSRC / f"{wrapper}_tc.cu").read_text()
+    assert re.search(rf"\nint {wrapper}_tc\(", tc_src)
+    assert f"{wrapper}_tc_kernel<D, " in tc_src
+    refuse = f"if (dtype != {code[torch.float32]}) return (int)cudaErrorInvalidValue;"
+    assert body.index(bf16.group(0)) < body.index(refuse)
+    f32 = body[body.index(refuse):]
+    assert tattn.kernel_route(torch.float32) == "cuda_core"
+    assert "RTT_DISPATCH_D(" in f32 and f"rtt::{wrapper}_kernel<D>" in f32
+    assert re.search(rf"template <int D>\n__global__ void __launch_bounds__\(NT\)\n"
+                     rf"{wrapper}_kernel\(const float\* __restrict__ q,", src)
+
+
 def test_kernel_check_mutants_apply_to_sources():
     """Each broken copy of ``kernel_check.MUTANTS`` finds its text exactly
     once in its source (so a source edit cannot silently disarm it before
@@ -455,9 +516,77 @@ def test_kernel_check_mutants_apply_to_sources():
     from ray_tpu_torch.ops import _build
 
     assert {"fwd_tc_drop_diag_tile_late_rows", "fwd_tc_skip_alpha_rescale",
-            "fwd_tc_p_unrounded"} <= set(kernel_check.MUTANTS)
+            "fwd_tc_p_unrounded", "dkv_tc_skip_last_q_tile_early_keys",
+            "dkv_tc_first_q_head_only", "dkv_tc_ds_unrounded",
+            "dq_tc_skip_first_tile_late_rows", "dq_tc_ds_unrounded"} <= set(kernel_check.MUTANTS)
+    bf16 = ("main", "gqa", "non_causal", "s1000")
+    for name in ("dkv_tc_skip_last_q_tile_early_keys", "dkv_tc_ds_unrounded",
+                 "dq_tc_skip_first_tile_late_rows", "dq_tc_ds_unrounded"):
+        assert set(bf16) <= set(kernel_check.MUTANTS[name][3]), name
+    assert "gqa" in kernel_check.MUTANTS["dkv_tc_first_q_head_only"][3]
+    for name in ("dq_skip_first_tile_late_rows", "dkv_skip_last_q_tile_early_keys",
+                 "fwd_drop_diag_tile_late_rows"):  # the CUDA-core kernels run f32 only
+        assert kernel_check.MUTANTS[name][3] == ("f32", "tiny"), name
     for name, (fname, text, repl, must_fail) in kernel_check.MUTANTS.items():
         assert (_build.CSRC / fname).read_text().count(text) == 1, name
         assert repl != text, name
         for case in must_fail or ():
             assert case in kernel_check.CASES or case == "tiny", (name, case)
+
+
+def _chip_smoke():
+    import importlib.util
+    from pathlib import Path
+
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", Path(__file__).resolve().parents[1] / "chip_smoke.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+@pytest.mark.parametrize("causal", [True, False])
+def test_chip_smoke_backward_pair_bound_is_the_functions(causal):
+    """``chip_smoke.py`` holds dq + dk/dv against one SDPA backward call,
+    so their line takes the bound of that function: 5 products (S, dP, dV,
+    dK, dQ; S and dP once) and q, k, v, dO, lse, delta read once, dq, dk,
+    dv written once -- not the two kernels' bounds added (3 + 4 products)."""
+    cs = _chip_smoke()
+    b, h, hk, s, d = 2, 32, 8, 2048, 128
+    pairs = s * (s + 1) // 2 if causal else s * s
+    ms, by, flops, nbytes = cs.bound_ms("flash_bwd", b, h, hk, s, d, "bfloat16", causal)
+    assert flops == 2 * 5 * b * h * pairs * d
+    assert nbytes == 2 * (3 * b * h * s * d + 4 * b * hk * s * d) + 2 * 4 * b * h * s
+    assert by == "operations" and ms == pytest.approx(1e3 * flops / cs.PEAK_FLOPS["bfloat16"])
+    kernels = [cs.bound_ms(k, b, h, hk, s, d, "bfloat16", causal)
+               for k in ("flash_bwd_dq", "flash_bwd_dkv")]
+    assert sum(k[2] for k in kernels) == 2 * 7 * b * h * pairs * d
+    assert ms < sum(k[0] for k in kernels)
+
+
+def test_kernel_check_sweep_summary():
+    """``kernel_check --seeds`` reports the worst sound gradient reading
+    over every (case, seed, gradient) with its margin under the bf16 RMS
+    bound, and each dS-unrounded copy's least reading of the gradient it
+    breaks, with its factor over the bound."""
+    bound = kernel_check.TOL["bfloat16"]["grad"]["rel_rms"]
+
+    def row(variant, case, seed, dq, dk, dv):
+        return {"variant": variant, "case": case, "seed": seed,
+                "rel_rms_err": {"dq": dq, "dk": dk, "dv": dv}}
+
+    rows = [row("sound", "main", 0, 8e-5, 1.2e-4, 1e-4),
+            row("sound", "gqa", 3, 9e-5, 2.2e-4, 1.5e-4),
+            row("sound", "gqa", 1, 9e-5, 2.0e-4, 1.5e-4),
+            row("dq_tc_ds_unrounded", "main", 0, 2.6e-3, 1e-4, 1e-4),
+            row("dq_tc_ds_unrounded", "s1000", 2, 1.9e-3, 1e-4, 1e-4),
+            row("dkv_tc_ds_unrounded", "gqa", 5, 8e-5, 2.4e-3, 1e-4)]
+    out = kernel_check.sweep_summary(rows)
+    worst = out["sound_worst"]
+    assert (worst["grad"], worst["case"], worst["seed"]) == ("dk", "gqa", 3)
+    assert worst["bound_over_worst"] == pytest.approx(bound / 2.2e-4)
+    dq = out["controls_least"]["dq_tc_ds_unrounded"]
+    assert (dq["grad"], dq["case"], dq["rel_rms_err"]) == ("dq", "s1000", 1.9e-3)
+    dkv = out["controls_least"]["dkv_tc_ds_unrounded"]
+    assert dkv["grad"] == "dk" and dkv["least_over_bound"] == pytest.approx(2.4e-3 / bound)
+    assert set(kernel_check.SWEEP_CONTROLS) <= set(kernel_check.MUTANTS)
