@@ -28,7 +28,32 @@ JSON line on stdout:
    one warm step and 3 timed steps on a fixed batch; the loss must be
    finite and fall, each kernel's launch count must equal
    ``n_layers x steps``, and every launch of every kernel must take the
-   tensor-core route.
+   tensor-core route;
+6. serve (the training state freed first): (a) the paged-KV steps through
+   ``PagedModelRunner`` (a prompt prefilled in 2 chunks, then 8 decode
+   steps, at each decode bucket 1-8, and beside 7 live requests) against
+   the dense ``forward`` on the same token prefix, in f32 at 2 layers
+   with TF32 off (relative RMS bound ``F32_REL_RMS``) and in bf16 at
+   Llama-2-7B's full width and depth (``BF16_REL_RMS`` and a least count
+   of top-1 agreements); at 2
+   layers in f32, 8 requests decoding together must each equal the same
+   request sent alone, and the greedy ones the dense greedy loop;
+   (b) ``InferenceEngine`` at that size (``SERVE_ENGINE``) answering 64
+   requests from 8 client threads (8 in flight), prompts of 64-1024
+   tokens, two sharing a 512-token prefix, 32 new tokens each, half greedy
+   and half sampled: every request must finish, no new shape may appear
+   after warmup, every block must come back, the prefix cache must hit and
+   copy, a seeded request sent again on the same path (a full-prompt
+   prefix hit both times) must repeat its tokens, and the
+   serve path must launch none of the three flash kernels (it has none:
+   the paged steps are plain torch ops, as the JAX steps are XLA ops); it
+   prints init and warmup seconds, TTFT and ITL quantiles over every
+   request, generated tokens/s, step times and peak memory;
+   (c) the engine's byte-exact contracts on the tiny config in f32 on the
+   card, each run's requests decoding together: greedy streams equal a
+   dense greedy loop, seeded sampled streams equal the same requests sent
+   alone, speculative decoding equals plain decode, a shared-prefix run
+   equals a prefix-cache-off run.
 
 Then the ``kernels`` summary line, the ``nvidia-smi`` line, and last the
 ``{"ok": true, "device": ...}`` line. Any failed check raises: the script
@@ -262,6 +287,423 @@ def phase_slice(torch, A, L, smi: str):
     return launches, routes
 
 
+# ---------------------------------------------------------------------------
+# 6. serve
+
+
+#: the paged steps against the dense forward: f32 relative RMS bound (a
+#: wrong RoPE offset, mask or gather order reads orders of magnitude above
+#: it) and the bf16 bounds at full depth (relative RMS, top-1 agreements)
+F32_REL_RMS = 1e-5
+BF16_REL_RMS, BF16_TOP1_MIN = 0.1, 5
+#: the serving configuration's engine (full width and depth of Llama-2-7B)
+SERVE_ENGINE = dict(block_size=16, num_blocks=640, prefill_buckets=(64, 128, 256, 512),
+                    decode_buckets=(1, 2, 4, 8), max_decode_batch=8,
+                    prefix_cache_enabled=True, warmup=True)
+#: the traffic: SERVE_CLIENTS threads send SERVE_REQUESTS requests in all
+SERVE_CLIENTS, SERVE_REQUESTS, SERVE_NEW_TOKENS, SHARED_PREFIX = 8, 64, 32, 512
+
+
+def paged_vs_dense(torch, L, cfg, params, n_prompt, n_decode, chunk, seed):
+    """One request through ``PagedModelRunner``s (prefill in chunks, then
+    decode steps): one runner for each decode bucket of the serving
+    configuration (1, 2, 4, 8), the request padded to the bucket, and two
+    more at bucket 8 where 7 live requests with shorter prompts decode
+    beside it, the request in the batch's first row or in its sixth. The request's logits at every step are held against
+    ``forward`` on the same token prefix. Returns the relative RMS error
+    of the batch-1 runner over all steps, the largest over the runners,
+    the batch-1 runner's top-1 agreements, the step count, and two
+    witnesses of how the arithmetic depends on what runs beside it: each
+    runner's decode logits against batch 1's (another GEMM M; live rows
+    beside it), and the last prompt token's logits recomputed alone in a
+    64-row chunk (the path of a full-prompt prefix hit) against those of
+    the prompt's last chunk."""
+    import numpy as np
+    from ray_tpu_torch.inference.model_runner import PagedModelRunner
+
+    bs = 16
+    m = -(-cfg.max_seq_len // bs)
+    own = -(-(n_prompt + n_decode) // bs)  # blocks one request needs
+    gen = torch.Generator().manual_seed(seed)
+    lens = [n_prompt] + [n_prompt - bs * (j + 1) for j in range(7)]
+    seqs = [torch.randint(1, cfg.vocab_size, (n + n_decode,), generator=gen).tolist()
+            for n in lens]
+    rows = [[1 + j * own + b for b in range(own)] + [0] * (m - own) for j in range(8)]
+    paged = {}
+    for name, batch, live, at in (("1", 1, 1, 0), ("2", 2, 1, 0), ("4", 4, 1, 0),
+                                  ("8", 8, 1, 0), ("8 live", 8, 8, 0),
+                                  ("8 live, row 5", 8, 8, 5)):
+        runner = PagedModelRunner(cfg, params, num_blocks=max(m, 8 * own) + 1, block_size=bs,
+                                  prefill_buckets=(64, chunk), decode_buckets=(batch,))
+        for j in reversed(range(live)):  # the request itself last
+            for s in range(0, lens[j], chunk):
+                logits = runner.prefill_chunk(seqs[j][s : min(s + chunk, lens[j])], rows[j], s)
+        order = list(range(1, live))
+        order.insert(at, 0)  # the request's row in the batch
+        steps = [logits]
+        for i in range(n_decode):
+            pos = [lens[j] + i for j in order]
+            steps.append(runner.decode([seqs[j][p] for j, p in zip(order, pos)], pos,
+                                       [rows[j] for j in order], [p + 1 for p in pos])[at])
+        if name == "1":  # last: it rewrites that token's K/V
+            alone = runner.prefill_chunk([seqs[0][n_prompt - 1]], rows[0], n_prompt - 1)
+        paged[name] = np.stack(steps).astype(np.float64)
+        del runner
+    dense = []
+    with torch.inference_mode():
+        for n in range(n_prompt, n_prompt + n_decode + 1):
+            t = torch.tensor([seqs[0][:n]], device=params.embed.device)
+            dense.append(L.forward(cfg, params, t)[0, -1].cpu().numpy())
+    dense = np.stack(dense).astype(np.float64)
+
+    def rel(ours, ref):
+        return float(np.sqrt(((ours - ref) ** 2).mean() / (ref ** 2).mean()))
+
+    return {"steps": len(dense), "rel_rms": rel(paged["1"], dense),
+            "rel_rms_max_over_buckets": max(rel(x, dense) for x in paged.values()),
+            "top1_agree": int((paged["1"].argmax(-1) == dense.argmax(-1)).sum()),
+            "decode_vs_batch1_rel_rms": {k: rel(v[1:], paged["1"][1:])
+                                         for k, v in paged.items() if k != "1"},
+            "last_prompt_token_alone_rel_rms": rel(alone.astype(np.float64), paged["1"][0])}
+
+
+def dense_greedy(torch, L, cfg, params, prompt, n):
+    toks, out = list(prompt), []
+    with torch.inference_mode():
+        for _ in range(n):
+            t = torch.tensor([toks], device=params.embed.device)
+            out.append(int(L.forward(cfg, params, t)[0, -1].argmax()))
+            toks.append(out[-1])
+    return out
+
+
+def in_traffic(engine, reqs):
+    """Every request submitted before any is read: they decode together."""
+    rids = [engine.submit(prompt, **kw) for prompt, kw in reqs]
+    return [list(engine.tokens(rid, timeout=300)) for rid in rids]
+
+
+def alone(engine, reqs):
+    """Each request sent and read before the next: each decodes at batch 1."""
+    return [list(engine.generate(prompt, **kw)) for prompt, kw in reqs]
+
+
+def mixed_requests(rs, vocab, n, lo, hi, new_tokens):
+    """``n`` prompts of ``lo``-``hi`` tokens; even ones greedy, odd ones
+    sampled at temperature 0.8 with fixed seeds."""
+    return [([int(x) for x in rs.randint(1, vocab, size=rs.randint(lo, hi + 1))],
+             dict(max_new_tokens=new_tokens) if i % 2 == 0 else
+             dict(max_new_tokens=new_tokens, temperature=0.8, seed=2000 + i))
+            for i in range(n)]
+
+
+def serve_traffic(torch, engine, cfg, seed):
+    """SERVE_REQUESTS requests from SERVE_CLIENTS client threads, each
+    thread sending its share one after another, so SERVE_CLIENTS are in
+    flight and, after the first wave, admission and decode overlap.
+    Prompt lengths are drawn from 64-1024 by ``seed``; request 1 is
+    request 0's 512-token prefix exactly (a full-prompt prefix hit: COW)
+    and is sent once request 0's prompt is cached; even requests are
+    greedy, odd ones sample at temperature 0.8 with fixed seeds. Returns
+    each request's (prompt, kwargs, tokens, submit time, token arrival
+    times)."""
+    import threading
+
+    import numpy as np
+
+    rs = np.random.RandomState(seed)
+    lens = rs.randint(64, 1025, size=SERVE_REQUESTS)
+    lens[0] = max(lens[0], SHARED_PREFIX + 64)
+    prompts = [[int(x) for x in rs.randint(1, cfg.vocab_size, size=n)] for n in lens]
+    prompts[1] = prompts[0][:SHARED_PREFIX]
+    kwargs = [dict(max_new_tokens=SERVE_NEW_TOKENS) if i % 2 == 0 else
+              dict(max_new_tokens=SERVE_NEW_TOKENS, temperature=0.8, seed=1000 + i)
+              for i in range(SERVE_REQUESTS)]
+    first_cached = threading.Event()
+    results = [None] * SERVE_REQUESTS
+    errors = []
+
+    def client(c):
+        try:
+            for i in range(c, SERVE_REQUESTS, SERVE_CLIENTS):
+                if i == 1:
+                    first_cached.wait(timeout=300)
+                t0 = time.perf_counter()
+                toks, times = [], []
+                for tok in engine.generate(prompts[i], request_id=f"t{i}", **kwargs[i]):
+                    toks.append(tok)
+                    times.append(time.perf_counter())
+                    if i == 0:
+                        first_cached.set()
+                results[i] = (prompts[i], kwargs[i], toks, t0, times)
+        except Exception as e:  # noqa: BLE001 — re-raised on the main thread
+            errors.append(e)
+            first_cached.set()
+
+    threads = [threading.Thread(target=client, args=(c,)) for c in range(SERVE_CLIENTS)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=600)
+    check(not any(t.is_alive() for t in threads), "serve traffic threads finished")
+    if errors:
+        raise errors[0]
+    return results
+
+
+def watch_blocks(engine):
+    """Wraps the engine's runner so that, on the host, every block a
+    prefill chunk or a decode step reads (its table row) is checked to
+    belong to one running request, and every block it writes (the blocks
+    under its valid positions; padding goes to the null block) to be a
+    live block of exactly one running request and of no one else. Returns the list of
+    violations, which fills as the engine runs."""
+    runner, blocks = engine.runner, engine.blocks
+    bs, m = blocks.block_size, runner.max_blocks_per_seq
+    foreign = []
+
+    def check(row, positions):
+        running = [req.request_id for req in list(engine.scheduler.running)]
+        owners = {}
+        for rid in running:
+            for b in blocks.owned(rid):
+                owners.setdefault(b, set()).add(rid)
+        readers = set(running)  # who owns every block the call reads
+        for b in row:
+            if b:
+                readers &= owners.get(b, set())
+        if not readers:
+            foreign.append({"reads": [(b, sorted(owners.get(b, ()))) for b in row if b]})
+        for p in positions:
+            b = row[min(p // bs, m - 1)]
+            if not b or len(owners.get(b, ())) != 1 or blocks.refcount(b) != 1:
+                foreign.append({"block": b, "position": p, "owners": sorted(owners.get(b, ())),
+                                "refcount": blocks.refcount(b)})
+
+    prefill, decode = runner.prefill_chunk, runner.decode
+
+    def checked_prefill(tokens, row, ctx_len):
+        check(row, range(ctx_len, ctx_len + len(tokens)))
+        return prefill(tokens, row, ctx_len)
+
+    def checked_decode(tokens, positions, rows, ctx_lens):
+        for row, p in zip(rows, positions):
+            check(row, [p])
+        return decode(tokens, positions, rows, ctx_lens)
+
+    runner.prefill_chunk, runner.decode = checked_prefill, checked_decode
+    return foreign
+
+
+def quantiles(xs):
+    import numpy as np
+
+    return {"n": len(xs), **{f"p{q}": float(np.percentile(xs, q)) for q in (50, 90, 99)},
+            "max": float(max(xs))}
+
+
+def phase_serve(torch, A, L, smi: str):
+    """(a) the paged steps against the dense forward (f32 at 2 layers, bf16
+    at full depth), and at 2 layers in f32 the engine's streams in traffic
+    against the same requests sent alone; (b) the engine serving
+    concurrent requests at Llama-2-7B size; (c) the engine's byte-exact
+    contracts on the tiny config in f32, requests decoding together.
+    Returns the serve path's launches of each kernel."""
+    import gc
+
+    import numpy as np
+    from ray_tpu_torch.inference import EngineConfig, InferenceEngine
+    from ray_tpu_torch.observability import timeline
+
+    gc.collect()
+    torch.cuda.empty_cache()  # the training slice's state is gone
+    # (a) f32, 2 layers: prefill in 2 chunks, then 8 decode steps
+    cfg32 = L.LlamaConfig.llama2_7b(n_layers=2, dtype=torch.float32)
+    p32 = L.init_params(cfg32, 1)
+    r32 = paged_vs_dense(torch, L, cfg32, p32, 200, 8, 128, seed=11)
+    emit({"phase": "serve", "part": "paged_vs_dense", "config":
+          "LlamaConfig.llama2_7b(n_layers=2, dtype=float32)", "tf32": False, **r32,
+          "bound": F32_REL_RMS})
+    for key in ("rel_rms", "rel_rms_max_over_buckets"):
+        check(r32[key] <= F32_REL_RMS, f"f32 paged vs dense {key} {r32[key]} > {F32_REL_RMS}")
+    # the witness for the bf16 seeded-repeat finding: in f32 a stream in
+    # traffic (decode batches up to 8) equals the same request sent alone
+    reqs = mixed_requests(np.random.RandomState(14), cfg32.vocab_size, 8, 16, 64, 16)
+    eng = InferenceEngine(cfg32, p32, EngineConfig(
+        block_size=16, num_blocks=-(-cfg32.max_seq_len // 16) + 9,
+        prefill_buckets=(32, 64), decode_buckets=(1, 2, 4, 8),
+        max_decode_batch=8, warmup=False)).start()
+    timeline.clear_events()
+    try:
+        together, apart = in_traffic(eng, reqs), alone(eng, reqs)
+        batches = sorted({e.args["decode_batch"] for e in timeline.timeline_events()
+                          if e.name == "engine_step"})
+    finally:
+        eng.stop()
+    dense = [dense_greedy(torch, L, cfg32, p32, p, 16) for p, kw in reqs[::2]]
+    del p32
+    torch.cuda.empty_cache()
+    witness = {"streams": len(reqs), "decode_batches_seen": batches,
+               "in_traffic_equals_alone": [a == b for a, b in zip(together, apart)],
+               "greedy_in_traffic_equals_dense": together[::2] == dense}
+    emit({"phase": "serve", "part": "f32_traffic_witness", "config":
+          "LlamaConfig.llama2_7b(n_layers=2, dtype=float32)", **witness})
+    check(all(witness["in_traffic_equals_alone"]), "f32: streams in traffic equal streams alone")
+    check(witness["greedy_in_traffic_equals_dense"], "f32: greedy in traffic equals dense")
+    check(max(batches) > 1, f"f32 witness decoded several slots together: {batches}")
+
+    # (b) the serving configuration: full width and depth, bf16
+    cfg = L.LlamaConfig.llama2_7b()
+    t0 = time.perf_counter()
+    params = L.init_params(cfg, 0)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    r16 = paged_vs_dense(torch, L, cfg, params, 400, 8, 256, seed=12)
+    emit({"phase": "serve", "part": "paged_vs_dense", "config": "LlamaConfig.llama2_7b()",
+          **r16, "bound": BF16_REL_RMS, "top1_min": BF16_TOP1_MIN})
+    for key in ("rel_rms", "rel_rms_max_over_buckets"):
+        check(r16[key] <= BF16_REL_RMS, f"bf16 paged vs dense {key} {r16[key]} > {BF16_REL_RMS}")
+    check(r16["top1_agree"] >= BF16_TOP1_MIN,
+          f"bf16 top-1 agreements {r16['top1_agree']} < {BF16_TOP1_MIN}")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    engine = InferenceEngine(cfg, params, EngineConfig(**SERVE_ENGINE))
+    torch.cuda.synchronize()
+    warmup_s = time.perf_counter() - t0
+    # the logits each sampled token of request 1 (the seeded repeat's
+    # subject) was drawn from, in the traffic and in each repeat
+    watched, sample = {}, engine._sample
+
+    def recording_sample(req, logits):
+        if req.request_id == "t1" or req.request_id.startswith("again"):
+            watched.setdefault(req.request_id, []).append(np.array(logits, np.float64))
+        return sample(req, logits)
+
+    engine._sample = recording_sample
+    foreign = watch_blocks(engine)
+    engine.start()
+    try:
+        timeline.clear_events()
+        A.reset_launch_counts()  # the serve path's run starts here
+        t0 = time.perf_counter()
+        results = serve_traffic(torch, engine, cfg, seed=13)
+        wall_s = time.perf_counter() - t0
+        launches = {fn.__name__: fn.launches for fn in A.KERNELS}  # read just after
+        steps = [e for e in timeline.timeline_events() if e.name == "engine_step"]
+        engine_stats = engine.stats()
+        # the same seeded request three times more, alone. The second and
+        # third find its whole prompt cached, so both take one path (a
+        # full-prompt hit recomputes the last prompt token alone); the
+        # first may find it evicted by the traffic and prefill it whole
+        prompt, kw, toks = results[1][:3]
+        hits0 = engine.stats()["prefix_cache"]["hits_total"]
+        again, hits = [], []
+        for j in range(3):
+            again += alone(engine, [(prompt, dict(kw, request_id=f"again{j}"))])
+            hits.append(engine.stats()["prefix_cache"]["hits_total"] - hits0 - sum(hits))
+    finally:
+        engine.stop()
+    peak = torch.cuda.max_memory_allocated()
+    ttft = [r[4][0] - r[3] for r in results]
+    itl = [b - a for r in results for a, b in zip(r[4], r[4][1:])]
+    n_tokens = sum(len(r[2]) for r in results)
+
+    def step_ms(pick):
+        ms = [(e.end_us - e.start_us) / 1e3 for e in steps if pick(e.args)]
+        return {"n": len(ms), "p50": float(np.percentile(ms, 50)) if ms else None}
+
+    def lead(stream):  # how many leading tokens equal the stream in traffic
+        return next((i for i, (a, b) in enumerate(zip(toks, stream)) if a != b), len(toks))
+
+    def logits_split(rid):  # the first token whose logits differ from the traffic's
+        ref = watched["t1"]
+        i = next((i for i, (a, b) in enumerate(zip(ref, watched[rid]))
+                  if not np.array_equal(a, b)), None)
+        if i is None:
+            return None
+        a, b = ref[i], watched[rid][i]
+        return {"token": i, "rel_rms": float(np.sqrt(((a - b) ** 2).mean() / (a ** 2).mean()))}
+
+    emit({"phase": "serve", "part": "engine", "config": "LlamaConfig.llama2_7b()",
+          "params": L.param_count(cfg), "reduced": [], "engine": SERVE_ENGINE,
+          "clients": SERVE_CLIENTS, "requests": SERVE_REQUESTS,
+          "new_tokens": SERVE_NEW_TOKENS, "prompt_lens": [len(r[0]) for r in results],
+          "init_s": init_s, "warmup_s": warmup_s, "wall_s": wall_s,
+          "ttft_s": quantiles(ttft), "itl_s": quantiles(itl),
+          "generated_tokens": n_tokens, "generated_tokens_per_s": n_tokens / wall_s,
+          "steps": engine_stats["total_steps"],
+          "step_ms": {"with_prefill": step_ms(lambda a: a["prefill_tokens"] > 0),
+                      "decode_only": step_ms(lambda a: a["prefill_tokens"] == 0),
+                      "decode_only_batch8": step_ms(
+                          lambda a: a["prefill_tokens"] == 0 and a["decode_batch"] == 8)},
+          "seeded_repeat": {"prefix_hits": hits, "same_path_repeats_equal": again[1] == again[2],
+                            "first_repeat_equals_second": again[0] == again[1],
+                            "leading_tokens_equal_to_in_traffic": [lead(a) for a in again],
+                            "first_logits_differing_from_traffic": [
+                                logits_split(f"again{j}") for j in range(3)],
+                            "preempted_total": engine_stats["scheduler"]["total_preempted"]},
+          "foreign_blocks": foreign[:8], "foreign_blocks_total": len(foreign),
+          "compile_count": engine.runner.compile_count(),
+          "recompiles_after_warmup": engine.runner.recompiles_after_warmup(),
+          "prefix_cache": engine_stats["prefix_cache"], "used_blocks": engine.blocks.used_blocks,
+          "max_memory_allocated_bytes": peak, "launches": launches, "nvidia_smi": smi})
+    check(all(len(r[2]) == SERVE_NEW_TOKENS for r in results),
+          f"every request got {SERVE_NEW_TOKENS} tokens")
+    check(engine.runner.recompiles_after_warmup() == 0, "no new shape after warmup")
+    check(engine.runner.compile_count() == 4 + 4 + 1, "4 prefill + 4 decode buckets + COW")
+    check(engine.blocks.used_blocks == 0, "every block returned")
+    check(engine_stats["prefix_cache"]["hits_total"] >= 1, "at least one prefix hit")
+    check(engine_stats["prefix_cache"]["cow_copies_total"] >= 1, "the COW path ran")
+    check(hits[1:] == [1, 1], f"the last two repeats hit the prefix cache: {hits}")
+    check(again[1] == again[2],
+          "a seeded temperature request submitted again on the same path repeats its tokens")
+    check(sum(launches.values()) == 0, f"the serve path launches no flash kernel: {launches}")
+    check(not foreign, f"every block read or written belongs to its request: {foreign[:8]}")
+    del engine, params
+    torch.cuda.empty_cache()
+
+    # (c) byte-exact contracts within the port: tiny config, f32, on the
+    # card, every run's requests decoding together
+    tiny = L.LlamaConfig.tiny()
+    tp = L.init_params(tiny, 0)
+    small = dict(num_blocks=64, block_size=8, prefill_buckets=(8, 32),
+                 decode_buckets=(1, 2, 4), max_decode_batch=4, warmup=False)
+    prompts = [[5, 9, 12, 4], [7, 7, 1, 3, 9, 2, 8, 8, 4], [1, 2, 3, 4, 5, 6, 7, 1, 2, 3]]
+    shared = [12, 40, 7, 99, 3, 64, 8, 1] * 2
+    greedy = [(p, dict(max_new_tokens=12)) for p in prompts]
+    sampled = [(p, dict(max_new_tokens=12, temperature=0.8, seed=300 + i))
+               for i, p in enumerate(prompts)]
+    prefixed = [(p, dict(max_new_tokens=12)) for p in (shared + [5], shared, shared + [6, 2])]
+    runs = {}
+    for name, extra, reqs in (
+        ("plain", {}, greedy + sampled), ("speculative", {"speculative_k": 4}, greedy + sampled),
+        ("prefix_on", {}, prefixed), ("prefix_off", {"prefix_cache_enabled": False}, prefixed),
+    ):
+        eng = InferenceEngine(tiny, tp, EngineConfig(**small, **extra)).start()
+        try:
+            runs[name] = in_traffic(eng, reqs)
+            if name == "plain":
+                runs["sampled_alone"] = alone(eng, sampled)
+            if name == "speculative":
+                proposed = eng.stats()["speculative"]["proposed_tokens"]
+        finally:
+            eng.stop()
+    dense = [dense_greedy(torch, L, tiny, tp, p, 12) for p in prompts]
+    contracts = {"greedy_equals_dense": runs["plain"][:3] == dense,
+                 "sampled_in_traffic_equals_alone": runs["plain"][3:] == runs["sampled_alone"],
+                 "speculative_equals_plain": runs["speculative"] == runs["plain"],
+                 "speculative_proposed": proposed,
+                 "prefix_equals_no_prefix": runs["prefix_on"] == runs["prefix_off"]}
+    emit({"phase": "serve", "part": "contracts", "config": "LlamaConfig.tiny() f32 on cuda",
+          "requests_together": {"plain": 6, "speculative": 6, "prefix": 3}, **contracts})
+    for what in ("greedy_equals_dense", "sampled_in_traffic_equals_alone",
+                 "speculative_equals_plain", "prefix_equals_no_prefix"):
+        check(contracts[what], what)
+    check(proposed > 0, "the speculative engine proposed drafts")
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -285,6 +727,7 @@ def main() -> int:
     phase_reference(K, L)
     times = phase_times(torch, K, A)
     launches, routes = phase_slice(torch, A, L, smi)
+    phase_serve(torch, A, L, smi)
     emit({"kernels": [
         {"name": k, "route": "cuda", "source": SOURCES[k],
          "replaces": TPU_KERNELS[k][1], "replaces_fn": TPU_KERNELS[k][0],

@@ -9,7 +9,15 @@ has one reference file to be checked against:
 * ``ray_tpu_torch.ops.attention`` ← ``ray_tpu.ops.attention`` (the three
   Pallas flash-attention kernels become hand-written CUDA C++ for Hopper,
   sources under ``ops/csrc/``, built at first use by ``ops/_build.py``)
-* ``ray_tpu_torch.models.llama``  ← ``ray_tpu.models.llama`` (training half)
+* ``ray_tpu_torch.models.llama``  ← ``ray_tpu.models.llama`` (training
+  step and paged-KV serving steps)
+* ``ray_tpu_torch.inference``     ← ``ray_tpu.inference`` (engine, runner,
+  scheduler, block manager, speculative proposers; not the serve
+  deployment or the KV tier)
+* ``ray_tpu_torch.core`` and ``ray_tpu_torch.observability`` ← the pieces
+  of ``ray_tpu.core`` (config flags, deadline) and
+  ``ray_tpu.observability`` (metrics, timeline, tracing, SLO ledger) the
+  engine uses
 
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``;
 without a card they raise rather than fall back.

@@ -1,4 +1,5 @@
-"""Llama-family decoder LM, training half (port of ``ray_tpu.models.llama``).
+"""Llama-family decoder LM (port of ``ray_tpu.models.llama``): the training
+step and the paged-KV serving steps.
 
 * one ``nn.Module`` (``Llama``) whose parameter names and shapes follow
   the JAX param tree (``embed``, ``layers.{i}.wq`` ..., ``final_norm``,
@@ -8,6 +9,8 @@
 * attention is ``ray_tpu_torch.ops.flash_attention`` (the hand-written
   CUDA kernels on the card), GQA mapped in-kernel;
 * matmuls in the param dtype, logits and loss in f32;
+* the paged-KV prefill, verify and decode steps the inference engine runs
+  (plain torch ops over a block-paged cache updated in place);
 * single device. Selective remat, MoE, sequence-parallel attention and
   sharding are not ported yet and raise ``NotImplementedError``.
 
@@ -335,6 +338,222 @@ def make_train_step(cfg: LlamaConfig, *, remat=False, mesh=None, rules=None):
         return (model, opt), loss.detach()
 
     return step
+
+
+# ---------------------------------------------------------------------------
+# paged-KV autoregressive decode (inference engine path)
+#
+# The reference's layout: one K and one V tensor of shape
+#   [n_layers, num_blocks, block_size, n_kv_heads, head_dim]
+# shared by every request; token position p of a request lives at
+# (blocks[p // block_size], p % block_size) in every layer. K/V stay at
+# n_kv_heads and queries are grouped [n_kv, rep] at score time. Block id 0
+# is the NULL block: padding positions write into it and masked reads
+# from it never reach the softmax, so every step has static shapes.
+#
+# The steps update the cache IN PLACE (``index_put_``), the port's
+# counterpart of the JAX step's donation, and run under
+# ``torch.inference_mode`` (entered per call: the mode is thread-local and
+# the engine calls them from its step thread). Indices are ``torch.long``
+# on the cache's device. Attention is plain torch ops over the gathered
+# blocks, as the JAX steps compute it outside any Pallas kernel.
+
+
+@torch.inference_mode()
+def init_paged_kv_cache(cfg: LlamaConfig, num_blocks: int, block_size: int, dtype=None, *,
+                        device=None) -> Dict[str, torch.Tensor]:
+    """Paged KV cache (zeros; block 0 reserved as null) on ``device``."""
+    shape = (cfg.n_layers, num_blocks, block_size, cfg.n_kv_heads, cfg.head_dim)
+    dev = resolve_device(device)
+    dt = dtype or cfg.dtype
+    return {"k": torch.zeros(shape, dtype=dt, device=dev),
+            "v": torch.zeros(shape, dtype=dt, device=dev)}
+
+
+def paged_cache_from_jax(cache) -> Dict[str, torch.Tensor]:
+    """A JAX paged cache dict (numpy leaves, or anything ``np.asarray``
+    takes) → torch tensors on the CPU, bf16 bits carried as they are."""
+    return {"k": _to_torch(cache["k"]), "v": _to_torch(cache["v"])}
+
+
+@torch.inference_mode()
+def copy_paged_blocks(cache, src, dst) -> None:
+    """Duplicate whole cache blocks (prefix-cache COW): ``src``/``dst`` are
+    [P] block ids; every layer's K/V rows at ``dst`` become copies of
+    ``src``. All sources are read (the right-hand side is a copy) before
+    any destination is written. Padding pairs point both ids at block 0."""
+    for name in ("k", "v"):
+        cache[name][:, dst] = cache[name][:, src]
+
+
+@torch.inference_mode()
+def gather_paged_blocks(cache, blocks) -> torch.Tensor:
+    """Whole cache blocks, stacked ``[2, n_layers, P, block_size, n_kv,
+    head_dim]`` (K at index 0, V at 1); ``blocks`` is [P] ids padded with 0."""
+    return torch.stack([cache["k"][:, blocks], cache["v"][:, blocks]])
+
+
+@torch.inference_mode()
+def scatter_paged_blocks(cache, blocks, kv) -> None:
+    """Write blocks in the ``gather_paged_blocks`` layout into the cache.
+    Padding entries point at block 0: duplicate writes land trash on trash."""
+    cache["k"][:, blocks] = kv[0].to(cache["k"].dtype)
+    cache["v"][:, blocks] = kv[1].to(cache["v"].dtype)
+
+
+def _rope_at(cfg: LlamaConfig, positions):
+    """cos/sin tables at arbitrary int positions: [N] -> ([N, hd/2] x2)."""
+    hd = cfg.head_dim
+    inv_freq = 1.0 / (cfg.rope_theta ** (torch.arange(0, hd, 2, dtype=torch.float32,
+                                                      device=positions.device) / hd))
+    ang = positions.float()[:, None] * inv_freq[None, :]
+    return torch.cos(ang), torch.sin(ang)
+
+
+def _apply_rope_flat(x, cos, sin):
+    """x: [N, H, hd] with per-row position tables [N, hd/2]."""
+    x1, x2 = x[..., ::2], x[..., 1::2]
+    c = cos[:, None, :]
+    s = sin[:, None, :]
+    out1 = x1 * c - x2 * s
+    out2 = x2 * c + x1 * s
+    return torch.stack([out1, out2], dim=-1).reshape(x.shape).to(x.dtype)
+
+
+def _scatter_kv(cache, layer: int, blk, off, k, v) -> None:
+    """Write per-token K/V into their cache slots. blk/off: [N] long,
+    k/v: [N, n_kv, hd]. Padding rows target the null block."""
+    cache["k"][layer].index_put_((blk, off), k.to(cache["k"].dtype))
+    cache["v"][layer].index_put_((blk, off), v.to(cache["v"].dtype))
+
+
+def _paged_layers(cfg: LlamaConfig, params: Llama, cache, tokens, tables, pos, blk, mask):
+    """The layer stack shared by the three steps, on B sequences of C
+    positions each. tokens/pos/blk: [B, C]; tables: [B, M]; mask:
+    [B, C, M*bs] (key visible to query). Writes every position's K/V
+    (slot ``(blk, pos % bs)``), then gathers each sequence's blocks —
+    AFTER the scatter, so a window attends to itself. Returns the final
+    normed hidden states [B, C, D]."""
+    B, C = tokens.shape
+    M = tables.shape[1]
+    bs = cache["k"].shape[2]
+    kv, hd = cfg.n_kv_heads, cfg.head_dim
+    rep = cfg.n_heads // kv
+    scale = 1.0 / math.sqrt(hd)
+    flat_pos, flat_blk = pos.reshape(B * C), blk.reshape(B * C)
+    off = flat_pos % bs
+    cos, sin = _rope_at(cfg, flat_pos)
+    # the score dtype of the JAX einsum: the promotion of q's and the cache's
+    ct = torch.promote_types(params.embed.dtype, cache["k"].dtype)
+
+    x = params.embed[tokens]  # [B, C, D]
+    for layer, p in enumerate(params.layers):
+        h = rms_norm(x, p.attn_norm, cfg.norm_eps)
+        q = torch.einsum("bcd,dhk->bchk", h, p.wq)
+        k = torch.einsum("bcd,dhk->bchk", h, p.wk)
+        v = torch.einsum("bcd,dhk->bchk", h, p.wv)
+        q = _apply_rope_flat(q.reshape(B * C, cfg.n_heads, hd), cos, sin)
+        k = _apply_rope_flat(k.reshape(B * C, kv, hd), cos, sin)
+        _scatter_kv(cache, layer, flat_blk, off, k, v.reshape(B * C, kv, hd))
+        ks = cache["k"][layer][tables].reshape(B, M * bs, kv, hd)
+        vs = cache["v"][layer][tables].reshape(B, M * bs, kv, hd)
+        qg = q.reshape(B, C, kv, rep, hd)
+        # scores rounded to the operands' dtype, then f32 (as the reference)
+        s = torch.einsum("bcgrh,bsgh->bcgrs", qg.to(ct), ks.to(ct)).float() * scale
+        s = s.masked_fill(~mask[:, :, None, None, :], -1e30)
+        pattn = torch.softmax(s, dim=-1)
+        o = torch.einsum("bcgrs,bsgh->bcgrh", pattn.to(vs.dtype), vs)
+        o = o.reshape(B, C, cfg.n_heads, hd)
+        x = x + torch.einsum("bchk,hkd->bcd", o.to(x.dtype), p.wo)
+        hm = rms_norm(x, p.mlp_norm, cfg.norm_eps)
+        gate = torch.einsum("bcd,dm->bcm", hm, p.w_gate)
+        up = torch.einsum("bcd,dm->bcm", hm, p.w_up)
+        x = x + torch.einsum("bcm,md->bcd", F.silu(gate) * up, p.w_down)
+    return rms_norm(x, params.final_norm, cfg.norm_eps)
+
+
+def _check_paged(cfg: LlamaConfig) -> None:
+    if cfg.moe_experts > 0:
+        raise NotImplementedError(
+            "paged decode does not support MoE FFNs yet (ROADMAP Queue A: MoE)"
+        )
+
+
+@torch.inference_mode()
+def paged_prefill_step(cfg: LlamaConfig, params: Llama, cache, tokens, block_table,
+                       ctx_len: int, true_len: int):
+    """One prefill chunk for ONE request, fixed shapes.
+
+    tokens: [C] (right-padded chunk), block_table: [M] (padded with 0 =
+    null), ``ctx_len``: tokens ALREADY cached (chunked prefill: > 0 from
+    the second chunk on), ``true_len``: valid tokens in this chunk. Writes
+    the chunk's K/V into ``cache`` in place, attends causally over cached
+    context + chunk, and returns ``logits [vocab]`` (f32) of the chunk's
+    last valid token."""
+    _check_paged(cfg)
+    C = tokens.shape[0]
+    M = block_table.shape[0]
+    bs = cache["k"].shape[2]
+    idx = torch.arange(C, device=tokens.device)
+    pos = ctx_len + idx  # global positions of the chunk's tokens
+    valid = idx < true_len
+    blk = torch.where(valid, block_table[torch.clamp(pos // bs, max=M - 1)], 0)
+    # key j (global position) visible to chunk query i iff j <= ctx_len+i
+    key_pos = torch.arange(M * bs, device=tokens.device)
+    mask = key_pos[None, :] <= pos[:, None]  # [C, M*bs]
+    x = _paged_layers(cfg, params, cache, tokens[None], block_table[None], pos[None],
+                      blk[None], mask[None])
+    last = max(true_len - 1, 0)
+    return torch.einsum("d,dv->v", x[0, last], params.lm_head).float()
+
+
+@torch.inference_mode()
+def paged_verify_step(cfg: LlamaConfig, params: Llama, cache, tokens, block_tables, ctx_lens,
+                      true_lens):
+    """Speculative verification for a BATCH of slots, fixed shapes.
+
+    tokens: [B, C] (right-padded windows ``[last_committed, d_1..d_k]``),
+    block_tables: [B, M], ctx_lens: [B] tokens already cached per slot,
+    true_lens: [B] valid window lengths (0 for padding slots: every
+    position masks invalid, writes land on the null block). Writes K/V in
+    place and returns ``logits [B, C, vocab]`` (f32) for EVERY window
+    position. Rejected tail positions leave stale K/V behind, never read:
+    every mask stops at the committed context."""
+    _check_paged(cfg)
+    B, C = tokens.shape
+    M = block_tables.shape[1]
+    bs = cache["k"].shape[2]
+    idx = torch.arange(C, device=tokens.device)
+    pos = ctx_lens[:, None] + idx[None, :]  # [B, C] global positions
+    valid = idx[None, :] < true_lens[:, None]
+    brange = torch.arange(B, device=tokens.device)
+    blk = torch.where(valid, block_tables[brange[:, None], torch.clamp(pos // bs, max=M - 1)], 0)
+    key_pos = torch.arange(M * bs, device=tokens.device)
+    mask = key_pos[None, None, :] <= pos[:, :, None]  # [B, C, M*bs]
+    x = _paged_layers(cfg, params, cache, tokens, block_tables, pos, blk, mask)
+    return torch.einsum("bcd,dv->bcv", x, params.lm_head).float()
+
+
+@torch.inference_mode()
+def paged_decode_step(cfg: LlamaConfig, params: Llama, cache, tokens, positions, block_tables,
+                      ctx_lens):
+    """One decode step for a BATCH of slots, fixed shapes.
+
+    tokens: [B] (this step's input token per slot), positions: [B] (its
+    global position), block_tables: [B, M], ctx_lens: [B] (visible context
+    INCLUDING this token = positions+1 for active slots; padding slots
+    carry ctx_len=1 and null blocks so the softmax stays finite). Writes
+    K/V in place and returns ``logits [B, vocab]`` (f32)."""
+    _check_paged(cfg)
+    B, M = block_tables.shape
+    bs = cache["k"].shape[2]
+    brange = torch.arange(B, device=tokens.device)
+    blk = block_tables[brange, torch.clamp(positions // bs, max=M - 1)]
+    key_pos = torch.arange(M * bs, device=tokens.device)
+    mask = key_pos[None, :] < ctx_lens[:, None]  # [B, M*bs]
+    x = _paged_layers(cfg, params, cache, tokens[:, None], block_tables, positions[:, None],
+                      blk[:, None], mask[:, None])
+    return torch.einsum("bd,dv->bv", x[:, 0], params.lm_head).float()
 
 
 def entry(device=None):
