@@ -53,7 +53,32 @@ JSON line on stdout:
    card, each run's requests decoding together: greedy streams equal a
    dense greedy loop, seeded sampled streams equal the same requests sent
    alone, speculative decoding equals plain decode, a shared-prefix run
-   equals a prefix-cache-off run.
+   equals a prefix-cache-off run;
+7. serve_llm (the serve phase's engines freed first; the flash kernels'
+   counts set to 0 before it and read after, all 0): ``LLMServer``, the
+   in-process serving surface. (a) f32, TF32 off, at 7B width with depth
+   cut to 2 layers: 4 requests (2 greedy, 2 seeded at temperature 0.8)
+   streamed undisturbed on one server, then resumed at k = 1, 5, 11 with
+   ``prompt + delivered[:k]`` and ``resume_from=k`` on a plain and on a
+   speculative survivor built from the same seed: every tail must equal
+   the undisturbed stream byte for byte from seq k, and the delivered-EOS
+   and room-clamped resumes must yield nothing; (b) the same server in a
+   child process (``tools/chaos_stream.py``) armed with
+   ``kill_mid_decode:1.0:6`` through ``RAY_TPU_testing_replica_chaos``:
+   it must die by SIGKILL mid-stream, and the stream, resumed here behind
+   a ``SeqGate``, must have no gap and no repeat and equal the undisturbed
+   one; (c) full Llama-2-7B in bf16 on two servers sharing one params
+   object (``SERVE_ENGINE`` with ``step_stall_unhealthy_s=1.0``):
+   ``stall:1.0:3.0:1`` armed on one, whose ``check_health()`` must read
+   False during the stall and True after, its tokens equal to the unarmed
+   server's; (d) 8 requests from 8 client threads (prompts of 64-1024
+   tokens, 32 new tokens, half greedy, half seeded at 0.8) streamed
+   undisturbed on one server, then each cut after k = 1, 5, 11 or 20
+   tokens on the other by closing its stream and resumed on the first:
+   every stream must end with 32 tokens and contiguous seq numbers, every
+   block of both servers must come back and no shape may appear after
+   warmup. It reports, not gates, how many resumed tails equal the
+   undisturbed streams in bf16 and the resume TTFT against the cold one.
 
 Then the ``kernels`` summary line, the ``nvidia-smi`` line, and last the
 ``{"ok": true, "device": ...}`` line. Any failed check raises: the script
@@ -704,6 +729,288 @@ def phase_serve(torch, A, L, smi: str):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# 7. serve_llm: the in-process serving surface
+
+
+#: (a)/(b): f32 at 2 layers; (c)/(d): the serving configuration, whose
+#: health check reads a step stalled for over a second
+LLM_F32_ENGINE = dict(block_size=16, num_blocks=288, prefill_buckets=(64, 256),
+                      decode_buckets=(1, 2, 4), max_decode_batch=4, warmup=False)
+LLM_BF16_ENGINE = dict(SERVE_ENGINE, step_stall_unhealthy_s=1.0)
+#: the speculative survivor's draft model (a draft model proposes at every
+#: step; random weights leave n-gram lookup nothing to find)
+LLM_DRAFT = dict(dim=256, n_layers=1, n_heads=4, n_kv_heads=4, mlp_hidden=512)
+RESUME_K, CUT_K = (1, 5, 11), (1, 5, 11, 20)
+CHAOS_SPEC, CHAOS_SEED, STALL_SPEC = "kill_mid_decode:1.0:6", 20260804, "stall:1.0:3.0:1"
+
+
+def flat(chunks):
+    """A stream of TokenChunk bursts flattened, as the serve router does."""
+    return [item for chunk in chunks for item in chunk]
+
+
+def gated(gate, pairs, out):
+    """Admits ``(seq, token)`` pairs through a SeqGate into ``out``."""
+    for seq, tok in pairs:
+        if gate.admit(seq):
+            out.append(tok)
+
+
+def resume_f32(torch, L, smi):
+    """(a) every request streamed undisturbed on server A, then resumed at
+    each k on a plain survivor B and a speculative survivor C (all three
+    built from one seed); the delivered-EOS and room-clamped resumes; (b)
+    the same request streamed by a child replica armed with
+    ``kill_mid_decode`` and resumed on B behind a SeqGate."""
+    import gc
+
+    import numpy as np
+    from ray_tpu_torch.core.streaming import SeqGate
+    from ray_tpu_torch.inference import EngineConfig, LLMServer
+    from ray_tpu_torch.tools.chaos_stream import stream_in_child
+
+    t0 = time.perf_counter()
+    cfg = L.LlamaConfig.llama2_7b(n_layers=2, dtype=torch.float32)
+    spec = dict(speculative_k=3, speculative_draft="model",
+                draft_config=L.LlamaConfig.llama2_7b(**LLM_DRAFT, dtype=torch.float32))
+    a, b, c = (LLMServer(cfg, EngineConfig(**LLM_F32_ENGINE, **extra), seed=1)
+               for extra in ({}, {}, spec))
+    rs = np.random.RandomState(21)
+    prompts = [[int(x) for x in rs.randint(1, cfg.vocab_size, size=n)] for n in (40, 100, 190, 48)]
+    reqs = [dict(prompt=p, max_new_tokens=16, request_id=f"a{i}",
+                 **({} if i % 2 == 0 else dict(temperature=0.8, seed=700 + i)))
+            for i, p in enumerate(prompts)]
+    undisturbed = [flat(a.generate({**r, "resume_from": 0})) for r in reqs]
+    tails = {}
+    for i, (r, full) in enumerate(zip(reqs, undisturbed)):
+        toks = [t for _, t in full]
+        for k in RESUME_K:
+            for name, survivor in (("plain", b), ("speculative", c)):
+                got = flat(survivor.generate({**r, "request_id": f"{name}{i}-{k}",
+                                              "prompt": r["prompt"] + toks[:k], "resume_from": k}))
+                tails[f"{i}/{k}/{name}"] = got == full[k:]
+    toks = [t for _, t in undisturbed[0]]
+    eos_resume = flat(b.generate({**reqs[0], "request_id": "eos", "prompt": reqs[0]["prompt"]
+                                  + toks[:5], "eos_token": toks[4], "resume_from": 5}))
+    n = cfg.max_seq_len
+    clamped = flat(b.generate({"prompt": list(range(1, n - 3)) + toks[:4], "max_new_tokens": 10,
+                               "resume_from": 4, "request_id": "clamped"}))
+    part_a = {"phase": "serve_llm", "part": "a_resume_f32",
+              "config": "LlamaConfig.llama2_7b(n_layers=2, dtype=float32)",
+              "reduced": ["n_layers 32 -> 2"], "tf32": False, "engine": LLM_F32_ENGINE,
+              "speculative_survivor": {"k": 3, "draft": f"llama2_7b({LLM_DRAFT}) f32"},
+              "requests": [{"prompt_len": len(r["prompt"]), "temperature": r.get("temperature", 0.0)}
+                           for r in reqs],
+              "undisturbed_seqs_ok": all([s for s, _ in f] == list(range(16)) for f in undisturbed),
+              "tails_equal": tails, "delivered_eos_resume": eos_resume,
+              "room_clamped_resume": clamped,
+              "speculative_proposed": c.engine_stats()["speculative"]["proposed_tokens"],
+              "metrics_address": a.metrics_address(), "seconds": time.perf_counter() - t0}
+    emit(part_a)
+    check(part_a["undisturbed_seqs_ok"], "undisturbed streams number their tokens 0-15")
+    check(all(tails.values()), f"f32 resumed tails equal the undisturbed streams: {tails}")
+    check(eos_resume == [] and clamped == [], "delivered-EOS and room-clamped resumes yield nothing")
+    check(part_a["speculative_proposed"] > 0, "the speculative survivor proposed drafts")
+    check(part_a["metrics_address"] is not None, "LLMServer exports its metrics")
+
+    # (b) the same f32 server in a child process, SIGKILLed mid-decode
+    t0 = time.perf_counter()
+    r = reqs[1]
+    delivered, rc, err = stream_in_child(
+        r, CHAOS_SPEC, CHAOS_SEED, timeout=300, model="llama2_7b", n_layers=2,
+        dtype="float32", device="cuda", seed=1, engine=LLM_F32_ENGINE)
+    gate, stream = SeqGate(), []
+    gated(gate, delivered, stream)
+    k = len(stream)
+    gated(gate, flat(b.generate({**r, "request_id": "after-kill",
+                                 "prompt": r["prompt"] + stream, "resume_from": k})), stream)
+    part_b = {"phase": "serve_llm", "part": "b_kill_f32", "spec": CHAOS_SPEC,
+              "chaos_seed": CHAOS_SEED, "child_returncode": rc, "delivered_before_kill": k,
+              "child_log": [line for line in err.splitlines() if "chaos" in line][-2:],
+              "stream_len": len(stream), "next_seq": gate.next_seq,
+              "equals_undisturbed": stream == [t for _, t in undisturbed[1]],
+              "seconds": time.perf_counter() - t0, "nvidia_smi": smi}
+    emit(part_b)
+    check(rc == -9, f"the child replica died by SIGKILL (rc {rc}): {err[-2000:]}")
+    check(1 <= k < 16, f"the kill landed mid-stream after {k} tokens")
+    check(part_b["equals_undisturbed"] and gate.next_seq == 16,
+          "the resumed stream has no gap, no repeat, and equals the undisturbed one")
+    del a, b, c
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def stall_and_resume_bf16(torch, L, smi):
+    """(c) a stall armed on one of two servers sharing Llama-2-7B's params:
+    unhealthy while it sleeps, healthy after, the same tokens as the
+    unarmed server; (d) 8 requests from 8 client threads, undisturbed on
+    X, then each cut after k tokens on Y by closing its stream and resumed
+    on X."""
+    import gc
+    import threading
+
+    import numpy as np
+    from ray_tpu_torch.core.streaming import SeqGate
+    from ray_tpu_torch.inference import EngineConfig, LLMServer
+
+    cfg = L.LlamaConfig.llama2_7b()
+    params = L.init_params(cfg, 0)
+    t0 = time.perf_counter()
+    x, y = (LLMServer(cfg, EngineConfig(**LLM_BF16_ENGINE), params=params) for _ in range(2))
+    warmup_s = time.perf_counter() - t0
+    # (c) the stall
+    t0 = time.perf_counter()
+    rs = np.random.RandomState(31)
+    req = {"prompt": [int(t) for t in rs.randint(1, cfg.vocab_size, size=200)],
+           "max_new_tokens": 16}
+    x.testing_arm_replica_chaos(STALL_SPEC, 1)
+    out, readings, errors = [], [], []
+
+    def send():
+        try:
+            out.extend(x(req)["tokens"])
+        except Exception as e:  # noqa: BLE001 — re-raised on the main thread
+            errors.append(e)
+
+    sent = time.perf_counter()
+    th = threading.Thread(target=send)
+    th.start()
+    while th.is_alive():
+        readings.append((time.perf_counter() - sent, x.check_health()))
+        time.sleep(0.05)
+    th.join(timeout=300)
+    if errors:
+        raise errors[0]
+    want = y(req)["tokens"]
+    unhealthy = [t for t, ok in readings if not ok]
+    part_c = {"phase": "serve_llm", "part": "c_stall_bf16", "config": "LlamaConfig.llama2_7b()",
+              "spec": STALL_SPEC, "step_stall_unhealthy_s": 1.0, "readings": len(readings),
+              "first_unhealthy_s": unhealthy[0] if unhealthy else None,
+              "last_unhealthy_s": unhealthy[-1] if unhealthy else None,
+              "request_s": readings[-1][0] if readings else None,
+              "healthy_after": x.check_health(),
+              "injections": x.engine.testing_fault_plan.injections,
+              "tokens_equal_unarmed": out == want, "warmup_s_two_servers": warmup_s,
+              "seconds": time.perf_counter() - t0, "nvidia_smi": smi}
+    emit(part_c)
+    check(unhealthy and part_c["healthy_after"], "unhealthy during the stall, healthy after")
+    check(part_c["injections"] == 1, "the stall was injected once")
+    check(part_c["tokens_equal_unarmed"], "the stalled request's tokens equal the unarmed server's")
+
+    # (d) cut and resumed at full size, 8 client threads
+    t0 = time.perf_counter()
+    n_req, new = 8, 32
+    lens = rs.randint(64, 1025, size=n_req)
+    reqs = [dict(prompt=[int(t) for t in rs.randint(1, cfg.vocab_size, size=n)],
+                 max_new_tokens=new, **({} if i % 2 == 0 else dict(temperature=0.8, seed=900 + i)))
+            for i, n in enumerate(lens)]
+    cold, cut, errors = [None] * n_req, [None] * n_req, []
+    # the logits X samples each token of the undisturbed ("u") and the
+    # resumed ("r") streams from: where a resumed tail splits, and by how much
+    watched, sample = {}, x.engine._sample
+
+    def recording_sample(req, logits):
+        watched.setdefault(req.request_id, []).append(np.array(logits, np.float64))
+        return sample(req, logits)
+
+    x.engine._sample = recording_sample
+
+    def in_threads(fn):
+        threads = [threading.Thread(target=fn, args=(i,)) for i in range(n_req)]
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join(timeout=600)
+        check(not any(th.is_alive() for th in threads), "client threads finished")
+        if errors:
+            raise errors[0]
+
+    def undisturbed(i):
+        try:
+            t, first, pairs = time.perf_counter(), None, []
+            for chunk in x.generate({**reqs[i], "request_id": f"u{i}", "resume_from": 0}):
+                first = first or time.perf_counter()
+                pairs += chunk
+            cold[i] = (pairs, first - t)
+        except Exception as e:  # noqa: BLE001 — re-raised on the main thread
+            errors.append(e)
+
+    def cut_and_resume(i):
+        try:
+            k, gate, stream = CUT_K[i % len(CUT_K)], SeqGate(), []
+            gen = y.generate({**reqs[i], "request_id": f"c{i}", "resume_from": 0})
+            for chunk in gen:
+                gated(gate, chunk[: k - len(stream)], stream)
+                if len(stream) == k:
+                    break
+            gen.close()  # the client goes away: the request is cancelled
+            t = time.perf_counter()
+            first = None
+            for chunk in x.generate({**reqs[i], "request_id": f"r{i}", "resume_from": k,
+                                     "prompt": reqs[i]["prompt"] + stream}):
+                first = first or time.perf_counter()
+                gated(gate, chunk, stream)
+            cut[i] = (k, stream, gate.next_seq, first - t)
+        except Exception as e:  # noqa: BLE001 — re-raised on the main thread
+            errors.append(e)
+
+    in_threads(undisturbed)
+    in_threads(cut_and_resume)
+    for s in (x, y):
+        s.engine.wait_idle(60)
+    per_request = []
+    for i, ((pairs, _), (k, stream, next_seq, _)) in enumerate(zip(cold, cut)):
+        ref = [t for _, t in pairs]
+        diff = next((j for j, (p, q) in enumerate(zip(ref, stream)) if p != q), None)
+        u, r = watched[f"u{i}"][k], watched[f"r{i}"][0]
+        per_request.append({"prompt_len": int(lens[i]), "k": k,
+                            "temperature": reqs[i].get("temperature", 0.0),
+                            "tokens": len(stream), "next_seq": next_seq,
+                            "delivered_equal": stream[:k] == ref[:k],
+                            "tail_equal": sum(p == q for p, q in zip(ref[k:], stream[k:])),
+                            "first_differing_position": diff,
+                            "first_resumed_logits_rel_rms":
+                                float(np.sqrt(((u - r) ** 2).mean() / (u ** 2).mean()))})
+    compiles = {n: s.engine.runner.recompiles_after_warmup() for n, s in (("x", x), ("y", y))}
+    used = {n: s.engine.blocks.used_blocks for n, s in (("x", x), ("y", y))}
+    part_d = {"phase": "serve_llm", "part": "d_resume_bf16", "config": "LlamaConfig.llama2_7b()",
+              "reduced": [], "engine": LLM_BF16_ENGINE, "clients": n_req, "new_tokens": new,
+              "requests": per_request,
+              "byte_exact": sum(r["first_differing_position"] is None for r in per_request),
+              "ttft_cold_s": quantiles([c[1] for c in cold]),
+              "ttft_resume_s": quantiles([c[3] for c in cut]),
+              "recompiles_after_warmup": compiles, "used_blocks": used,
+              "seconds": time.perf_counter() - t0, "nvidia_smi": smi}
+    emit(part_d)
+    check(all(r["tokens"] == new and r["next_seq"] == new for r in per_request),
+          f"every resumed stream ends with {new} tokens, seq numbers contiguous")
+    check(compiles == {"x": 0, "y": 0}, f"no new shape after warmup: {compiles}")
+    check(used == {"x": 0, "y": 0}, f"every block of both servers came back: {used}")
+    del x, y, params
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def phase_serve_llm(torch, A, L, smi: str):
+    """The in-process serving surface: LLMServer's seq-numbered resume in
+    f32 (a), a child replica killed mid-decode and resumed (b), a stalled
+    step read by the health check (c), and streams cut and resumed at
+    full Llama-2-7B in bf16 (d). Returns the path's launches of each
+    kernel (it has none)."""
+    import gc
+
+    gc.collect()
+    torch.cuda.empty_cache()  # the serve phase's engines and caches are gone
+    A.reset_launch_counts()  # the serve_llm path's run starts here
+    resume_f32(torch, L, smi)
+    stall_and_resume_bf16(torch, L, smi)
+    launches = {fn.__name__: fn.launches for fn in A.KERNELS}  # read just after
+    emit({"phase": "serve_llm", "part": "launches", "launches": launches})
+    check(sum(launches.values()) == 0, f"the serve_llm path launches no flash kernel: {launches}")
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -728,6 +1035,7 @@ def main() -> int:
     times = phase_times(torch, K, A)
     launches, routes = phase_slice(torch, A, L, smi)
     phase_serve(torch, A, L, smi)
+    phase_serve_llm(torch, A, L, smi)
     emit({"kernels": [
         {"name": k, "route": "cuda", "source": SOURCES[k],
          "replaces": TPU_KERNELS[k][1], "replaces_fn": TPU_KERNELS[k][0],

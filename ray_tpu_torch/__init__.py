@@ -12,12 +12,13 @@ has one reference file to be checked against:
 * ``ray_tpu_torch.models.llama``  ← ``ray_tpu.models.llama`` (training
   step and paged-KV serving steps)
 * ``ray_tpu_torch.inference``     ← ``ray_tpu.inference`` (engine, runner,
-  scheduler, block manager, speculative proposers; not the serve
-  deployment or the KV tier)
-* ``ray_tpu_torch.core`` and ``ray_tpu_torch.observability`` ← the pieces
-  of ``ray_tpu.core`` (config flags, deadline) and
-  ``ray_tpu.observability`` (metrics, timeline, tracing, SLO ledger) the
-  engine uses
+  scheduler, block manager, speculative proposers, the in-process
+  ``LLMServer``; not the serve deployment or the KV tier)
+* ``ray_tpu_torch.core``, ``ray_tpu_torch.util`` and
+  ``ray_tpu_torch.observability`` ← the pieces of ``ray_tpu.core`` (config
+  flags, deadline, stream types), ``ray_tpu.util`` (the seeded replica
+  fault plan) and ``ray_tpu.observability`` (metrics, timeline, tracing,
+  SLO ledger) the engine and server use
 
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``;
 without a card they raise rather than fall back.

@@ -1,2 +1,3 @@
 """ray_tpu_torch.core — the port's copies of the runtime pieces its serving
-path reads: ``config`` (the flags it uses) and ``deadline``."""
+path reads: ``config`` (the flags it uses), ``deadline`` and ``streaming``
+(the stream item types)."""

@@ -19,6 +19,10 @@ _ENV_PREFIX = "RAY_TPU_"
 @dataclass
 class GlobalConfig:
     # --- observability ---
+    #: serve a Prometheus /metrics endpoint (LLMServer starts its own)
+    metrics_export_enabled: bool = True
+    #: bind address for /metrics ("0.0.0.0" for off-host Prometheus)
+    metrics_bind_host: str = "127.0.0.1"
     #: distributed-tracing sample rate in [0, 1]: a fresh trace root is
     #: sampled at request entry points with this probability; children
     #: inherit the verdict causally. 0 keeps the hot path span-free.
@@ -39,9 +43,18 @@ class GlobalConfig:
     drain_grace_s: float = 30.0
 
     # --- testing / chaos ---
-    #: seeded replica fault plan of the reference engine; the port's
-    #: engine refuses a set value (not ported yet, ROADMAP Queue A)
+    #: seeded REPLICA fault plan consulted by the LLM engine's step loop
+    #: once per executed step phase: "mode:prob[:param][:max],..." with
+    #: mode in {kill_mid_decode, kill_mid_prefill, stall} — see
+    #: util/chaos.py::ReplicaFaultPlan. Empty = no injection.
     testing_replica_chaos: str = ""
+    #: RNG seed for the replica fault plan; 0 = generate one (logged at
+    #: activation for replay)
+    testing_replica_chaos_seed: int = 0
+    #: MASTER chaos seed: when non-zero, a fault plan whose own seed knob
+    #: is 0 derives its seed from this one value
+    #: (util/chaos.py::derive_plan_seed). Explicit per-plan seeds win.
+    testing_chaos_seed: int = 0
 
     def apply_env(self) -> None:
         for f in fields(self):

@@ -1,6 +1,7 @@
 """ray_tpu_torch.inference — the continuous-batching LLM engine over a paged
 KV cache (port of ``ray_tpu.inference``): ``InferenceEngine`` and its
-``EngineConfig``, the ``PagedModelRunner`` that runs the port's paged Llama
+``EngineConfig``, ``LLMServer`` (one serving replica in-process: the engine
+behind seq-numbered resumable streams), the ``PagedModelRunner`` that runs the port's paged Llama
 steps where the params live, the host-side ``PagedBlockManager`` and the
 ``ContinuousBatchingScheduler``.
 
@@ -13,7 +14,10 @@ steps where the params live, the host-side ``PagedBlockManager`` and the
     tokens = list(engine.generate([1, 2, 3], max_new_tokens=8))
     engine.stop()
 
-The serve deployment (``llm_deployment``/``LLMServer``) is not ported yet.
+``LLMServer(cfg, EngineConfig(warmup=False), device="cpu")`` wraps the same
+engine; ``list(server.generate({"prompt": [1, 2, 3], "resume_from": 0}))``
+streams ``(seq, token)`` bursts. The serve deployment (``llm_deployment``)
+is not ported yet.
 """
 
 from ray_tpu_torch.inference.engine import (
@@ -24,6 +28,7 @@ from ray_tpu_torch.inference.engine import (
 )
 from ray_tpu_torch.inference.kv_cache import PagedBlockManager
 from ray_tpu_torch.inference.model_runner import PagedModelRunner
+from ray_tpu_torch.inference.serve_llm import LLMServer
 from ray_tpu_torch.inference.scheduler import (
     ContinuousBatchingScheduler,
     Request,
@@ -35,6 +40,7 @@ __all__ = [
     "EngineConfig",
     "EngineDrainingError",
     "InferenceEngine",
+    "LLMServer",
     "PagedBlockManager",
     "PagedModelRunner",
     "Request",

@@ -16,12 +16,16 @@ and ``routing_stats``; speculative decoding with adaptive k; and the
 deterministic sampler keyed on ``(request seed, absolute position)``
 (:meth:`_sample`), so a request resubmitted with ``prompt + generated[:k]``
 continues the identical token stream on any engine with the same params.
+Seeded replica chaos (``util/chaos.py::ReplicaFaultPlan``, armed through
+``testing_replica_chaos`` or per engine through ``testing_fault_plan``) is
+consulted once per step phase, before its device work.
 
-Not ported yet (each raises ``NotImplementedError`` naming the ROADMAP):
-KV-cache migration and the cluster KV tier (``kv_transfer_enabled``,
-``kv_tier_enabled``, ``begin_drain(migrate=True)``, ``prefill_kv``,
-``import_kv_blocks``), the node drain listener, and seeded replica chaos
-(``testing_replica_chaos``).
+The node drain listener takes the reference's no-cluster branch: the port
+has no runtime, so ``attach_node_drain_listener`` returns None and only an
+explicit ``begin_drain()`` drains. Not ported yet (each raises
+``NotImplementedError`` naming the ROADMAP): KV-cache migration and the
+cluster KV tier (``kv_transfer_enabled``, ``kv_tier_enabled``,
+``begin_drain(migrate=True)``, ``prefill_kv``, ``import_kv_blocks``).
 """
 
 from __future__ import annotations
@@ -29,7 +33,9 @@ from __future__ import annotations
 import hashlib
 import logging
 import math
+import os
 import queue
+import signal
 import threading
 import time
 import uuid
@@ -66,6 +72,27 @@ logger = logging.getLogger(__name__)
 #: where the features that are not ported yet stand
 _NOT_PORTED = "is not ported yet (ROADMAP Queue A: {})"
 
+# -- replica chaos (util/chaos.py::ReplicaFaultPlan) -------------------------
+_RPLAN_CACHE = None
+_RPLAN_CACHE_LOCK = threading.Lock()
+
+
+def active_replica_fault_plan():
+    """The process-wide seeded replica fault plan for
+    ``testing_replica_chaos`` (or None); seed logged at activation
+    (util/chaos.py::SeededPlanCache)."""
+    global _RPLAN_CACHE
+    if _RPLAN_CACHE is None:
+        from ray_tpu_torch.util.chaos import ReplicaFaultPlan, SeededPlanCache
+
+        with _RPLAN_CACHE_LOCK:
+            if _RPLAN_CACHE is None:
+                _RPLAN_CACHE = SeededPlanCache(
+                    ReplicaFaultPlan, "replica",
+                    "testing_replica_chaos", "testing_replica_chaos_seed",
+                    logger,
+                )
+    return _RPLAN_CACHE.active()
 
 
 def _stable_request_seed(request_id: str) -> int:
@@ -281,8 +308,6 @@ class InferenceEngine:
                            ("kv_tier_enabled", "the cluster KV tier")):
             if getattr(ec, flag):
                 raise NotImplementedError(f"EngineConfig.{flag} " + _NOT_PORTED.format(item))
-        if GLOBAL_CONFIG.testing_replica_chaos:
-            raise NotImplementedError("testing_replica_chaos " + _NOT_PORTED.format("replica chaos"))
         decode_buckets = ec.resolved_decode_buckets()
         if ec.max_decode_batch > max(decode_buckets):
             # catching this at runtime instead means _round_up_bucket
@@ -332,9 +357,16 @@ class InferenceEngine:
         self._thread: Optional[threading.Thread] = None
         self._draining = False
         self._drain_deadline: Optional[Deadline] = None
+        #: the node drain subscription (None: the port has no runtime yet)
+        self._listener_backend = None
+        self._node_listener = None
         #: step-loop heartbeat consumed by healthy(): stamped once per
-        #: loop iteration, so a step wedged inside device code goes stale
+        #: loop iteration, so a step wedged inside device code (or an
+        #: injected stall) goes stale while the actor loop stays live
         self._last_beat = time.monotonic()
+        #: per-engine fault-plan override (tests arm ONE replica
+        #: surgically); None falls through to the env/config plan
+        self.testing_fault_plan = None
         self.metrics = _engine_metrics()
         #: per-ENGINE TTFT tape (the process-registry histogram is shared
         #: by every engine in the process — tests host several): backs
@@ -436,7 +468,7 @@ class InferenceEngine:
         # another token — fail them so callers blocked in tokens() wake
         # instead of hanging on q.get() forever
         self._fail_all(RequestFailedError("engine stopped"))
-
+        self.detach_node_drain_listener()
 
     def _loop(self) -> None:
         while not self._stop.is_set():
@@ -721,10 +753,21 @@ class InferenceEngine:
         return self._draining
 
     def attach_node_drain_listener(self) -> None:
-        """Subscribe to node DRAINING pushes (needs the cluster runtime,
-        which the port has not copied yet)."""
-        raise NotImplementedError("attach_node_drain_listener " + _NOT_PORTED.format(
-            "the node drain listener"))
+        """Subscribe to node DRAINING pushes: a preemption warning on OUR
+        node triggers ``begin_drain``. The port has no cluster runtime yet
+        (ROADMAP Queue A), so every process takes the reference's
+        no-cluster branch: no subscription, explicit ``begin_drain()``
+        only."""
+        return None
+
+    def detach_node_drain_listener(self) -> None:
+        if self._listener_backend is not None and self._node_listener is not None:
+            try:
+                self._listener_backend.remove_node_event_listener(self._node_listener)
+            except Exception:
+                pass
+        self._listener_backend = None
+        self._node_listener = None
 
     # -- the step ---------------------------------------------------------
     def step(self) -> bool:
@@ -750,6 +793,7 @@ class InferenceEngine:
             )
         if not plan.prefills and not plan.decodes:
             return not plan.empty
+        self._consult_replica_chaos(plan)
 
         # timeline timestamps share the module's wall-clock epoch so
         # engine_step events merge with every other trace
@@ -928,6 +972,43 @@ class InferenceEngine:
         p = np.exp(z)
         p /= p.sum()
         return int(rng.choice(len(p), p=p))
+
+    def _consult_replica_chaos(self, plan) -> None:
+        """Replica fault injection at the step boundary (ReplicaFaultPlan):
+        consulted once per phase this step actually runs, BEFORE the
+        phase's device work — a kill lands after the last emitted token
+        and before the next one samples, the boundary the router's
+        seq-numbered resume must cover."""
+        for phase, present in (
+            ("prefill", bool(plan.prefills)),
+            ("decode", bool(plan.decodes)),
+        ):
+            if present:
+                self._consult_phase_chaos(phase)
+
+    def _consult_phase_chaos(self, phase: str) -> None:
+        """One chaos consult for a named engine phase ("prefill" |
+        "decode"; the KV-migration consults "export" and "import" come
+        with the KV tier, ROADMAP Queue A)."""
+        chaos = self.testing_fault_plan or active_replica_fault_plan()
+        if chaos is None:
+            return
+        fault = chaos.consult(phase)
+        if fault is None:
+            return
+        mode, param = fault
+        if mode == "stall":
+            logger.warning(
+                "replica chaos: stalling step loop %.2fs (seed=%d)",
+                param, chaos.seed,
+            )
+            time.sleep(param)
+        else:
+            logger.warning(
+                "replica chaos: %s — SIGKILL self (pid=%d seed=%d)",
+                mode, os.getpid(), chaos.seed,
+            )
+            os.kill(os.getpid(), signal.SIGKILL)
 
     # -- KV-cache migration (not ported yet) -------------------------------
     def prefill_kv(self, prompt: Sequence[int], **kw) -> Optional[Dict[str, Any]]:
@@ -1339,14 +1420,15 @@ class InferenceEngine:
         routers through the serve controller's long-poll channel
         (replica -> controller push -> router). Everything here must
         stay small and picklable — it travels on every routing-set
-        update. The reference's ``kv_tier`` adverts are absent: the
-        tier is not ported yet."""
+        update. ``kv_tier`` holds no adverts: the tier is not ported
+        yet, and the reference reports ``{}`` with the tier off."""
         return {
             "queue_depth": self.scheduler.queue_depth(),
             "cache_util": round(self.blocks.utilization(), 4),
             "outstanding_tokens": self.scheduler.outstanding_tokens(),
             "block_size": self.blocks.block_size,
             "prefix_digest": self.blocks.prefix_digest(),
+            "kv_tier": {},
             "draining": self._draining,
             # queue-pressure export for the ingress tier: the admission
             # BOUND (so a proxy can judge fullness, not just depth) and

@@ -48,6 +48,11 @@ COPIES = {
          "export_events_to_kv", "start_export_thread"),
         (),
     ),
+    # only the replica fault plan and what it reads (None: the killers and
+    # the RPC, pull, KV-tier and controller plans wait for the runtime)
+    "util/chaos": ((), None, ()),
+    # only the stream item types (None: the runtime's streaming generators)
+    "core/streaming": ((), None, ()),
 }
 
 

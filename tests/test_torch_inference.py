@@ -477,25 +477,66 @@ def test_global_config_env_override(monkeypatch):
     "prefill_kv", "import_kv_blocks", "attach_node_drain_listener",
 ])
 def test_unported_features_raise(cfg, params, feature, monkeypatch):
+    """What is not ported raises naming the ROADMAP; replica chaos and the
+    node drain listener are ported and no longer raise."""
     if feature in ("kv_transfer_enabled", "kv_tier_enabled"):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             InferenceEngine(cfg, params, engine_config(**{feature: True}))
         return
     if feature == "testing_replica_chaos":
-        monkeypatch.setattr(GLOBAL_CONFIG, "testing_replica_chaos", "stall:1.0:0.1")
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            InferenceEngine(cfg, params, engine_config())
+        # the engine builds with the flag set, and the plan is consulted
+        from ray_tpu_torch.inference import engine as port_engine
+
+        monkeypatch.setattr(port_engine, "_RPLAN_CACHE", None)  # restored after
+        monkeypatch.setattr(GLOBAL_CONFIG, "testing_replica_chaos", "stall:1.0:0.01:2")
+        monkeypatch.setattr(GLOBAL_CONFIG, "testing_replica_chaos_seed", 11)
+        eng = InferenceEngine(cfg, params, engine_config()).start()
+        try:
+            assert len(list(eng.generate([1, 2, 3], max_new_tokens=4))) == 4
+        finally:
+            eng.stop()
+        plan = port_engine.active_replica_fault_plan()
+        assert plan.seed == 11 and plan.injections == 2 and plan.consults >= 4
         return
     eng = InferenceEngine(cfg, params, engine_config())
+    if feature == "attach_node_drain_listener":
+        # no cluster: the reference's local-mode branch, explicit drain only
+        assert eng.attach_node_drain_listener() is None
+        assert not eng.draining
+        assert eng._listener_backend is None and eng._node_listener is None
+        eng.begin_drain(grace_s=5.0)
+        assert eng.draining
+        with pytest.raises(EngineDrainingError):
+            eng.submit([1, 2, 3])
+        eng.detach_node_drain_listener()
+        return
     call = {
         "migrate": lambda: eng.begin_drain(migrate=True),
         "prefill_kv": lambda: eng.prefill_kv([1, 2, 3]),
         "import_kv_blocks": lambda: eng.import_kv_blocks([1, 2], np.zeros(1)),
-        "attach_node_drain_listener": eng.attach_node_drain_listener,
     }[feature]
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         call()
     assert not eng.draining
+
+
+def test_routing_stats_keys_match_jax_engine(cfg, params):
+    """The gossip the serve router reads has the JAX engine's keys, in its
+    order, ``kv_tier`` included (``{}`` with the tier off)."""
+    import jax
+
+    from ray_tpu.inference import EngineConfig as JaxEngineConfig
+    from ray_tpu.inference import InferenceEngine as JaxEngine
+    from ray_tpu.models import llama as jl
+
+    jcfg = jl.LlamaConfig.tiny()
+    jeng = JaxEngine(jcfg, jl.init_params(jcfg, jax.random.PRNGKey(0)),
+                     JaxEngineConfig(num_blocks=32, block_size=8, prefill_buckets=(16,),
+                                     decode_buckets=(1,), max_decode_batch=1, warmup=False))
+    eng = InferenceEngine(cfg, params, engine_config())
+    ours, ref = eng.routing_stats(), jeng.routing_stats()
+    assert list(ours) == list(ref)
+    assert ours["kv_tier"] == ref["kv_tier"] == {}
 
 
 # ---------------------------------------------------------------------------
