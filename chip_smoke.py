@@ -104,6 +104,36 @@ JSON line on stdout:
    tokens/s beside the ``serve`` phase's, and the actor's init seconds
    and peak memory read inside it; (e) after ``shutdown()`` no process of
    the cluster may survive (the port's reaper scan).
+9. serve_deployment (the flash kernels' counts set to 0 before it and
+   read after, in this process and in every replica, all 0): a fresh
+   cluster of the port's (``ray_tpu_torch.init(num_cpus=4)``) and
+   ``serve.llm_deployment(..., ray_actor_options={"num_gpus": 1})``
+   behind ``serve.run``. (a) f32 at 2 layers: the replica must hold GPU 0
+   (``LLMServer.testing_device_info()``, read inside it) while the serve
+   controller was spawned with ``CUDA_VISIBLE_DEVICES=""``, and its 4
+   streams (2 greedy, 2 seeded at 0.8, 16 tokens) through
+   ``handle.stream(..., _method="generate")`` must equal an in-process
+   server's from the same seed byte for byte; a replica with no GPU lease
+   must fail to build ("no CUDA device"); (b) ``kill_mid_decode:1.0:6``
+   armed on that replica through the handle: the stream, resumed by the
+   router on the controller's replacement, must equal the undisturbed
+   one, the controller must count one ``death`` restart, and the
+   replacement must hold GPU 0 (it prints the gap from the last token
+   before the kill to the first after it); (b') a tiny f32 deployment
+   bound ``params=`` made in this process (they reach the replica as host
+   tensors) must serve on ``cuda:0`` and stream what an in-process server
+   streams on those params; (c) full Llama-2-7B in bf16
+   (``SERVE_ENGINE``, seed 0) answering the ``serve`` phase's traffic
+   (64 requests from 8 client threads) through the handle: all 64 with 32
+   tokens and no resume, every block back, no shape after warmup, a
+   prefix hit and a COW; it prints TTFT, ITL, TPOT and generated tokens/s
+   beside the ``serve`` phase's, and the replica's init seconds and peak
+   memory; then one greedy request over HTTP must get 32 tokens; (d)
+   ``begin_drain(30.0)`` through the handle with 4 streams live: each
+   must end with 32 tokens and no error, and the engine must read
+   draining with nothing running and every block back; (e) after
+   ``serve.shutdown()`` and ``shutdown()`` no process of the cluster may
+   survive.
 
 Then the ``kernels`` summary line, the ``nvidia-smi`` line, and last the
 ``{"ok": true, "device": ...}`` line. Any failed check raises: the script
@@ -1470,6 +1500,339 @@ def phase_runtime(torch, K, L, smi: str, serve_summary: dict):
           f"no process of the cluster ({len(pids)} before) survives shutdown: {left}")
 
 
+# ---------------------------------------------------------------------------
+# 9. serve_deployment: llm_deployment behind the serve router on the cluster
+
+
+#: (c): the deployment's concurrency, room for the serve traffic's 8 clients
+SD_MAX_QUERIES = 16
+#: (d): the streams live when the drain starts
+SD_DRAIN_STREAMS = 4
+
+
+class HandleClient:
+    """``serve_traffic``'s engine interface over a deployment handle: each
+    ``generate`` streams one request through the serve router."""
+
+    def __init__(self, handle):
+        self.handle = handle
+
+    def generate(self, prompt, request_id, **kw):
+        yield from self.handle.stream({"prompt": prompt, "request_id": request_id, **kw},
+                                      _method="generate", _timeout=600)
+
+
+def sd_stream(handle, request):
+    """One request through the handle: its tokens and their arrival times."""
+    toks, times = [], []
+    for tok in handle.stream(request, _method="generate", _timeout=600):
+        toks.append(tok)
+        times.append(time.perf_counter())
+    return toks, times
+
+
+def actor_env(handle, var="CUDA_VISIBLE_DEVICES"):
+    """An actor's pid and ``var`` in the environment its process was
+    spawned with (None when unset)."""
+    from ray_tpu_torch.util import state
+
+    aid = handle._actor_id.hex()
+    pid = next(a["pid"] for a in state.list_actors() if a["actor_id"] == aid)
+    with open(f"/proc/{pid}/environ", "rb") as f:
+        env = dict(kv.split(b"=", 1) for kv in f.read().split(b"\0") if b"=" in kv)
+    val = env.get(var.encode())
+    return pid, None if val is None else val.decode()
+
+
+def wait_gpu_back(rt, timeout_s: float = 60.0):
+    """Waits until the cluster's one GPU is free again (a deleted
+    deployment's replica gives its lease back as its process exits)."""
+    deadline = time.monotonic() + timeout_s
+    while rt.available_resources().get("GPU", 0) != 1:
+        check(time.monotonic() < deadline, f"the GPU is back: {rt.available_resources()}")
+        time.sleep(0.1)
+
+
+def phase_serve_deployment(torch, A, L, smi: str, serve_summary: dict):
+    """``llm_deployment`` on the port's cluster: (a) a num_gpus=1 replica
+    in f32 at 2 layers streams what an in-process server streams; a
+    replica with no GPU lease raises; (b) that replica SIGKILLed mid-decode,
+    its stream resumed on the controller's replacement; (b') a tiny
+    replica bound ``params=`` made here serves them on its card; (c) full
+    Llama-2-7B in bf16 answering the serve phase's traffic through the
+    handle, then one request over HTTP; (d) a drain with 4 live streams;
+    (e) no process survives shutdown."""
+    import gc
+    import json
+    import os
+    import socket
+    import threading
+    import urllib.request
+
+    import ray_tpu_torch as rt
+    from ray_tpu_torch import serve
+    from ray_tpu_torch.inference import EngineConfig, LLMServer
+    from ray_tpu_torch.observability.rpc_metrics import STREAM_RESUMES
+    from ray_tpu_torch.serve.controller import get_or_create_controller
+    from ray_tpu_torch.serve.replica import Replica
+    from ray_tpu_torch.util.reaper import find_runtime_pids
+
+    gc.collect()
+    torch.cuda.empty_cache()  # the earlier phases' engines and caches are gone
+    t_phase = time.perf_counter()
+    A.reset_launch_counts()  # the deployment path's run starts here
+    try:
+        rt.init(num_cpus=4)
+        total = rt.cluster_resources()
+        check(total.get("GPU") == 1, f"the daemon detected one GPU: {total}")
+        ctrl = get_or_create_controller()
+        # a replica with no GPU lease builds on cuda, sees no device, raises
+        nogpu = Replica.options(num_cpus=0.25).remote(
+            LLMServer, [L.LlamaConfig.tiny(), EngineConfig(warmup=False)], {"seed": 0}, "nogpu")
+
+        # (a) f32 at 2 layers, TF32 off on both sides
+        t0 = time.perf_counter()
+        cfg32 = L.LlamaConfig.llama2_7b(n_layers=2, dtype=torch.float32)
+        dep = serve.llm_deployment(cfg32, engine=EngineConfig(**LLM_F32_ENGINE), name="llm32",
+                                   route_prefix="/llm32", seed=1, max_concurrent_queries=8,
+                                   ray_actor_options={"num_gpus": 1})
+        handle = serve.run(dep.bind())
+        ready32_s = time.perf_counter() - t0
+        info32 = rt.get(handle.method("testing_device_info")(), timeout=60)
+        ctrl_pid, ctrl_env = actor_env(ctrl)
+        reqs = rt_witness_requests(cfg32.vocab_size)
+        served = [sd_stream(handle, r)[0] for r in reqs]
+        local = LLMServer(cfg32, EngineConfig(**LLM_F32_ENGINE), seed=1)
+        try:
+            in_process = [flat(local.generate(r)) for r in reqs]
+        finally:
+            local.engine.stop()
+        del local
+        gc.collect()
+        torch.cuda.empty_cache()
+        try:
+            rt.get(nogpu.health.remote(), timeout=120)
+            nogpu_error = None
+        except Exception as e:  # noqa: BLE001 — the failure is what (a) checks
+            nogpu_error = str(e)[-300:]
+        part_a = {"phase": "serve_deployment", "part": "a_f32_witness",
+                  "config": "LlamaConfig.llama2_7b(n_layers=2, dtype=float32)",
+                  "reduced": ["n_layers 32 -> 2"], "engine": LLM_F32_ENGINE,
+                  "cluster_resources": total, "deploy_to_ready_s": ready32_s, "replica": info32,
+                  "controller": {"pid": ctrl_pid, "cuda_visible_devices": ctrl_env},
+                  "requests": [{"prompt_len": len(r["prompt"]),
+                                "temperature": r.get("temperature", 0.0)} for r in reqs],
+                  "streams_equal": [a == b for a, b in zip(served, in_process)],
+                  "lengths": [len(a) for a in served], "no_gpu_replica_error": nogpu_error,
+                  "seconds": time.perf_counter() - t0}
+        emit(part_a)
+        check(info32["cuda_visible_devices"] == "0" and info32["device"] == "cuda:0"
+              and info32["device_name"] == torch.cuda.get_device_name(0),
+              f"the replica holds GPU 0: {info32}")
+        check(info32["float32_matmul_precision"] == "highest", "the replica's f32 is full f32")
+        check(ctrl_env == "", f"the serve controller sees no GPU: {ctrl_env!r}")
+        check(all(part_a["streams_equal"]) and part_a["lengths"] == [16] * 4,
+              "f32 streams through the deployment equal the in-process server's byte for byte")
+        check(nogpu_error is not None and "no CUDA device" in nogpu_error,
+              f"a replica without a GPU lease raises on cuda: {nogpu_error}")
+
+        # (b) the replica SIGKILLed mid-decode; the stream resumes on the
+        # controller's replacement, which gets the GPU back
+        t0 = time.perf_counter()
+        resumes0 = STREAM_RESUMES._values.get(("llm32",), 0.0)
+        rt.get(handle.method("testing_arm_replica_chaos")(CHAOS_SPEC, CHAOS_SEED), timeout=60)
+        toks, times = sd_stream(handle, dict(reqs[1], request_id="killed"))
+        gaps = [b - a for a, b in zip(times, times[1:])]
+        cut = max(range(len(gaps)), key=gaps.__getitem__)
+        status = rt.get(ctrl.wait_status.remote("llm32", min_replicas=1, timeout_s=300),
+                        timeout=330)
+        info_b = rt.get(handle.method("testing_device_info")(), timeout=60)
+        part_b = {"phase": "serve_deployment", "part": "b_replica_killed", "spec": CHAOS_SPEC,
+                  "seed": CHAOS_SEED, "request": 1, "tokens_before_kill": cut + 1,
+                  "kill_to_first_resumed_token_s": gaps[cut],
+                  "other_gaps_max_s": max(g for i, g in enumerate(gaps) if i != cut),
+                  "stream_equals_undisturbed": toks == served[1], "length": len(toks),
+                  "resumes": STREAM_RESUMES._values.get(("llm32",), 0.0) - resumes0,
+                  "restarts": status["restarts"], "replicas": status["replicas"],
+                  "killed_pid_gone": rt_pid_gone(info32["pid"]), "replacement": info_b,
+                  "available_gpu_with_replacement": rt.available_resources().get("GPU", 0),
+                  "seconds": time.perf_counter() - t0}
+        emit(part_b)
+        check(part_b["stream_equals_undisturbed"] and len(toks) == 16,
+              "the resumed stream equals the undisturbed one, no gap and no repeat")
+        check(part_b["resumes"] >= 1, "the router resumed the stream")
+        check(status["restarts"].get("death") == 1 and status["replicas"] == 1,
+              f"the controller replaced the dead replica once: {status}")
+        check(part_b["killed_pid_gone"] and info_b["pid"] != info32["pid"],
+              "the replacement is a new process")
+        check(info_b["cuda_visible_devices"] == "0" and info_b["device"] == "cuda:0"
+              and part_b["available_gpu_with_replacement"] == 0,
+              "the GPU went back to the pool and then to the replacement")
+        flash_a = [info32["flash_launches"], info_b["flash_launches"]]
+        serve.delete("llm32")
+        wait_gpu_back(rt)
+
+        # (b') params made here, bound to a num_gpus=1 replica: they reach
+        # it as host tensors, and it serves them on its card
+        t0 = time.perf_counter()
+        tiny = L.LlamaConfig.tiny(dtype=torch.float32)
+        tiny_params = L.init_params(tiny, 2, device="cuda")
+        dep = serve.llm_deployment(tiny, engine=EngineConfig(warmup=False), name="llmbound",
+                                   route_prefix="/llmbound", ray_actor_options={"num_gpus": 1})
+        handle = serve.run(dep.bind(params=tiny_params))
+        info_p = rt.get(handle.method("testing_device_info")(), timeout=60)
+        bound_reqs = [{"prompt": [3, 1, 4, 1, 5, 9, 2, 6], "max_new_tokens": 12},
+                      {"prompt": [2, 7, 1, 8, 2, 8], "max_new_tokens": 12,
+                       "temperature": 0.8, "seed": 7}]
+        served_p = [sd_stream(handle, r)[0] for r in bound_reqs]
+        local = LLMServer(tiny, EngineConfig(warmup=False), params=tiny_params,
+                          export_metrics=False)
+        try:
+            in_process_p = [flat(local.generate(r)) for r in bound_reqs]
+        finally:
+            local.engine.stop()
+        del local, tiny_params
+        part_bp = {"phase": "serve_deployment", "part": "b2_bound_params",
+                   "config": "LlamaConfig.tiny(dtype=float32)",
+                   "bound": "params=init_params(cfg, 2, device='cuda')",
+                   "replica": {k: info_p[k] for k in ("pid", "cuda_visible_devices", "device",
+                                                      "init_s")},
+                   "streams_equal": [a == b for a, b in zip(served_p, in_process_p)],
+                   "lengths": [len(a) for a in served_p],
+                   "seconds": time.perf_counter() - t0}
+        emit(part_bp)
+        check(info_p["cuda_visible_devices"] == "0" and info_p["device"] == "cuda:0",
+              f"a replica bound params= serves them on its card: {info_p}")
+        check(all(part_bp["streams_equal"]) and part_bp["lengths"] == [12, 12],
+              "the bound replica streams what the in-process server streams on those params")
+        flash_a.append(info_p["flash_launches"])
+        serve.delete("llmbound")
+        wait_gpu_back(rt)
+
+        # (c) full Llama-2-7B in bf16: the serve phase's engine, seed and
+        # traffic, through the handle
+        t0 = time.perf_counter()
+        cfg = L.LlamaConfig.llama2_7b()
+        dep = serve.llm_deployment(cfg, engine=EngineConfig(**SERVE_ENGINE), name="llm7b",
+                                   route_prefix="/llm7b", seed=0,
+                                   max_concurrent_queries=SD_MAX_QUERIES,
+                                   ray_actor_options={"num_gpus": 1})
+        handle = serve.run(dep.bind())
+        ready_s = time.perf_counter() - t0
+        resumes0 = STREAM_RESUMES._values.get(("llm7b",), 0.0)
+        t0 = time.perf_counter()
+        results = serve_traffic(torch, HandleClient(handle), cfg, seed=13)
+        wall_s = time.perf_counter() - t0
+        stats = rt.get(handle.method("engine_stats")(), timeout=60)
+        info = rt.get(handle.method("testing_device_info")(), timeout=60)
+        restarts = rt.get(ctrl.status.remote(), timeout=60)["llm7b"]["restarts"]
+        ttft = [r[4][0] - r[3] for r in results]
+        n_tokens = sum(len(r[2]) for r in results)
+        with socket.socket() as sock:
+            sock.bind(("127.0.0.1", 0))
+            port = sock.getsockname()[1]
+        proxy = serve.start_http(ctrl, port=port)
+        greedy = results[2]
+        body = json.dumps({"prompt": greedy[0], "max_new_tokens": SERVE_NEW_TOKENS}).encode()
+        t_http = time.perf_counter()
+        http = urllib.request.Request(f"http://127.0.0.1:{proxy.port}/llm7b", data=body,
+                                      headers={"Content-Type": "application/json"})
+        over_http = json.loads(urllib.request.urlopen(http, timeout=300).read())["result"]
+        http_s = time.perf_counter() - t_http
+        part_c = {"phase": "serve_deployment", "part": "c_serve_7b",
+                  "config": "LlamaConfig.llama2_7b()", "params": L.param_count(cfg),
+                  "reduced": [], "engine": SERVE_ENGINE, "max_concurrent_queries": SD_MAX_QUERIES,
+                  "clients": SERVE_CLIENTS, "requests": SERVE_REQUESTS,
+                  "new_tokens": SERVE_NEW_TOKENS, "prompt_lens": [len(r[0]) for r in results],
+                  "answered": sum(len(r[2]) == SERVE_NEW_TOKENS for r in results),
+                  "resumes": STREAM_RESUMES._values.get(("llm7b",), 0.0) - resumes0,
+                  "restarts": restarts, "deploy_to_ready_s": ready_s, "replica_init_s": info["init_s"],
+                  "replica_max_memory_allocated_bytes": info["max_memory_allocated_bytes"],
+                  "wall_s": wall_s, "ttft_s": quantiles(ttft),
+                  **stream_timing([r[4] for r in results]),
+                  "generated_tokens": n_tokens, "generated_tokens_per_s": n_tokens / wall_s,
+                  "blocks": stats["blocks"], "prefix_cache": stats["prefix_cache"],
+                  "compile_count": stats["compile_count"],
+                  "recompiles_after_warmup": stats["recompiles_after_warmup"],
+                  "http": {"tokens": len(over_http["tokens"]), "seconds": http_s,
+                           "equals_handle_stream": over_http["tokens"] == greedy[2]},
+                  "in_process_serve_phase": serve_summary, "nvidia_smi": smi}
+        emit(part_c)
+        check(part_c["answered"] == SERVE_REQUESTS,
+              f"every request finished with {SERVE_NEW_TOKENS} tokens: {part_c['answered']}")
+        check(part_c["resumes"] == 0 and not any(restarts.values()),
+              f"no replica restart (the health poll read the busy replica healthy): {restarts}")
+        check(stats["blocks"]["used_blocks"] == 0, f"every block returned: {stats['blocks']}")
+        check(stats["recompiles_after_warmup"] == 0, "no new shape after warmup")
+        check(stats["prefix_cache"]["hits_total"] >= 1, "at least one prefix hit")
+        check(stats["prefix_cache"]["cow_copies_total"] >= 1, "the COW path ran")
+        check(info["cuda_visible_devices"] == "0", "the 7B replica holds GPU 0")
+        check(part_c["http"]["tokens"] == SERVE_NEW_TOKENS,
+              f"a request over HTTP got {SERVE_NEW_TOKENS} tokens")
+
+        # (d) drain with live streams: each finishes, no error
+        t0 = time.perf_counter()
+        started = threading.Barrier(SD_DRAIN_STREAMS + 1, timeout=300)
+        drained, errors = {}, []
+
+        def consume(i):
+            try:
+                prompt, kw = results[8 + i][0], results[8 + i][1]
+                it = iter(handle.stream({"prompt": prompt, "request_id": f"drain{i}", **kw},
+                                        _method="generate", _timeout=600))
+                first = next(it)
+                started.wait()
+                drained[i] = [first] + list(it)
+            except Exception as e:  # noqa: BLE001 — checked below
+                errors.append(repr(e))
+                started.abort()
+
+        threads = [threading.Thread(target=consume, args=(i,)) for i in range(SD_DRAIN_STREAMS)]
+        for t in threads:
+            t.start()
+        started.wait()
+        rt.get(handle.method("begin_drain")(30.0), timeout=60)
+        for t in threads:
+            t.join(timeout=300)
+        stats_d = rt.get(handle.method("engine_stats")(), timeout=60)
+        info_d = rt.get(handle.method("testing_device_info")(), timeout=60)
+        part_d = {"phase": "serve_deployment", "part": "d_drain", "streams": SD_DRAIN_STREAMS,
+                  "lengths": [len(drained.get(i, ())) for i in range(SD_DRAIN_STREAMS)],
+                  "errors": errors, "draining": stats_d["draining"],
+                  "running": stats_d["scheduler"]["running"],
+                  "used_blocks": stats_d["blocks"]["used_blocks"],
+                  "seconds": time.perf_counter() - t0}
+        emit(part_d)
+        check(not errors and part_d["lengths"] == [SERVE_NEW_TOKENS] * SD_DRAIN_STREAMS,
+              f"every live stream finished through the drain: {part_d}")
+        check(stats_d["draining"] is True and part_d["running"] == 0
+              and part_d["used_blocks"] == 0, f"the engine drained clean: {part_d}")
+        launches = {fn.__name__: fn.launches for fn in A.KERNELS}  # read just after
+        replica_launches = flash_a + [info_d["flash_launches"]]
+        emit({"phase": "serve_deployment", "part": "launches", "this_process": launches,
+              "replicas": replica_launches})
+        check(sum(launches.values()) == 0 and
+              all(sum(r.values()) == 0 for r in replica_launches),
+              "the deployment path launches no flash kernel")
+
+        # (e) shutdown, with the serve controller and the replica alive
+        pids = find_runtime_pids(spawner_pid=os.getpid())
+        serve.shutdown()
+    finally:
+        try:
+            serve.shutdown()
+        finally:
+            rt.shutdown()
+    deadline = time.monotonic() + 15
+    while find_runtime_pids(spawner_pid=os.getpid()) and time.monotonic() < deadline:
+        time.sleep(0.1)
+    left = find_runtime_pids(spawner_pid=os.getpid())
+    emit({"phase": "serve_deployment", "part": "e_shutdown", "processes_before": len(pids),
+          "left_after": left, "seconds": time.perf_counter() - t_phase})
+    check(len(pids) >= 2 and not left,
+          f"no process of the cluster ({len(pids)} before) survives shutdown: {left}")
+
+
 def main() -> int:
     import torch
 
@@ -1496,6 +1859,7 @@ def main() -> int:
     serve_summary = phase_serve(torch, A, L, smi)
     phase_serve_llm(torch, A, L, smi)
     phase_runtime(torch, K, L, smi, serve_summary)
+    phase_serve_deployment(torch, A, L, smi, serve_summary)
     emit({"kernels": [
         {"name": k, "route": "cuda", "source": SOURCES[k],
          "replaces": TPU_KERNELS[k][1], "replaces_fn": TPU_KERNELS[k][0],

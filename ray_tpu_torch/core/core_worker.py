@@ -158,9 +158,11 @@ class CoreWorker(RuntimeBackend):
         # streaming generators (``task_manager.h:102`` ObjectRefStream).
         # Locked: item pushes land on the io loop while abandon runs on
         # the consumer/GC thread — an unordered pop could leak the hold
-        # created for an in-flight item.
+        # created for an in-flight item. Re-entrant: a collection that
+        # runs while a thread holds it may finalise a dropped generator,
+        # whose __del__ abandons its stream on that same thread.
         self._streams: Dict[bytes, Any] = {}
-        self._streams_lock = threading.Lock()
+        self._streams_lock = threading.RLock()
         # node membership/drain event listeners (Train drain watch etc.)
         self._node_event_listeners: List[Any] = []
         # nodes the controller has pushed as dead: fetches skip these

@@ -20,9 +20,11 @@ Seeded replica chaos (``util/chaos.py::ReplicaFaultPlan``, armed through
 ``testing_replica_chaos`` or per engine through ``testing_fault_plan``) is
 consulted once per step phase, before its device work.
 
-The node drain listener takes the reference's no-cluster branch: the port
-has no runtime, so ``attach_node_drain_listener`` returns None and only an
-explicit ``begin_drain()`` drains. Not ported yet (each raises
+Inside a process of the port's cluster (a serve replica),
+``attach_node_drain_listener`` subscribes to node events, and a DRAINING
+push for the replica's own node starts ``begin_drain``; without a cluster it
+returns None and only an explicit ``begin_drain()`` drains. Not ported yet
+(each raises
 ``NotImplementedError`` naming the ROADMAP): KV-cache migration and the
 cluster KV tier (``kv_transfer_enabled``, ``kv_tier_enabled``,
 ``begin_drain(migrate=True)``, ``prefill_kv``, ``import_kv_blocks``).
@@ -754,11 +756,29 @@ class InferenceEngine:
 
     def attach_node_drain_listener(self) -> None:
         """Subscribe to node DRAINING pushes: a preemption warning on OUR
-        node triggers ``begin_drain``. The port has no cluster runtime yet
-        (ROADMAP Queue A), so every process takes the reference's
-        no-cluster branch: no subscription, explicit ``begin_drain()``
-        only."""
-        return None
+        node triggers ``begin_drain`` (serve unroutes the replica at the
+        same time, so live streams finish and nothing new arrives)."""
+        try:
+            import ray_tpu_torch
+            from ray_tpu_torch.core.api import _global_worker
+
+            my_node = ray_tpu_torch.get_runtime_context().get_node_id()
+            backend = _global_worker().backend
+        except Exception:
+            return  # local mode / no cluster: explicit begin_drain() only
+
+        def _on_node_event(msg: Dict[str, Any]) -> None:
+            nid = msg.get("node_id")
+            nid = nid.hex() if isinstance(nid, bytes) else nid
+            if msg.get("state") == "DRAINING" and nid == my_node:
+                self.begin_drain()
+
+        try:
+            backend.add_node_event_listener(_on_node_event)
+        except Exception:
+            return
+        self._listener_backend = backend
+        self._node_listener = _on_node_event
 
     def detach_node_drain_listener(self) -> None:
         if self._listener_backend is not None and self._node_listener is not None:

@@ -1,8 +1,9 @@
 """LLMServer: one serving replica — model params plus the continuous-batching
 engine (port of ``ray_tpu.inference.serve_llm.LLMServer``).
 
-It runs in-process, without a cluster: the reference's tests build one the
-same way. Tokens stream out of :meth:`LLMServer.generate` as
+It runs in-process, as the reference's tests build one, or as the replica
+of a serve deployment (:func:`llm_deployment`, below). Tokens stream out
+of :meth:`LLMServer.generate` as
 :class:`~ray_tpu_torch.core.streaming.TokenChunk` bursts, or, in resume
 mode, as ``(seq, token)`` pairs:
 
@@ -21,23 +22,40 @@ keyed on ``(seed, position)``) makes the replayed stream byte-exact, and a
 the boundary duplicates. The replay is sound ONLY because generation is
 side-effect-free and deterministic given (params, request seed, prompt).
 
-Not ported yet: ``llm_deployment`` and the serve router (ROADMAP Queue A
-items 2-3); the KV-migration and KV-tier paths (``prefill_export``,
-``testing_arm_kv_tier_chaos``, ``begin_drain(migrate=True)``; item 4), which
-raise ``NotImplementedError``. A request carrying a ``kv_import`` or
-``kv_tier`` field runs as a plain prefill, the reference's own fallback
-when no cluster can serve the fetch.
+Behind the serve layer, :func:`llm_deployment` runs one ``LLMServer`` per
+replica on the port's cluster:
+
+    from ray_tpu_torch import serve
+
+    handle = serve.run(serve.llm_deployment(
+        cfg, ray_actor_options={"num_gpus": 1}).bind())
+    for token in handle.stream({"prompt": [1, 2, 3]}, _method="generate"):
+        ...
+
+A replica serves on ``cuda`` unless ``bind(device=...)`` names another
+device, whether it builds its params or is bound ``params=``; so on the
+card it needs a GPU lease (``num_gpus=1``), and one without sees
+``CUDA_VISIBLE_DEVICES=""`` and raises.
+
+Not ported yet: the KV-migration and KV-tier paths (``prefill_export``,
+``testing_arm_kv_tier_chaos``, ``begin_drain(migrate=True)``,
+``llm_deployment(kv_tier=True)`` and ``llm_deployment(disaggregated=True)``;
+ROADMAP Queue A item 4), which raise ``NotImplementedError``. A request
+carrying a ``kv_import`` or ``kv_tier`` field runs as a plain prefill, the
+reference's own fallback when no cluster can serve the fetch.
 """
 
 from __future__ import annotations
 
+import os
 import sys
+import time
 from typing import Any, Dict, Iterator, Optional
 
 from ray_tpu_torch.core.config import GLOBAL_CONFIG
 from ray_tpu_torch.core.streaming import TokenChunk
 from ray_tpu_torch.inference.engine import _NOT_PORTED, EngineConfig, InferenceEngine
-from ray_tpu_torch.models.llama import LlamaConfig, init_params
+from ray_tpu_torch.models.llama import LlamaConfig, init_params, resolve_device
 
 #: the KV-migration and KV-tier paths wait for ROADMAP Queue A item 4
 _KV_ITEM = "item 4, KV migration and the cluster KV tier"
@@ -64,19 +82,24 @@ class LLMServer:
         export_metrics: bool = True,
         device=None,
     ):
-        """``params=None`` builds ``init_params(model_cfg, seed,
-        device=device)``: on ``cuda`` unless ``device`` names another, and
-        raising when there is no card. Given params, the engine runs where
-        they live and ``device`` is not read."""
+        """The server runs on ``device``: ``cuda`` unless it names another,
+        raising when there is no card. ``params=None`` builds
+        ``init_params(model_cfg, seed, device=device)``; given params are
+        moved there (a module bound to a deployment reaches its replica as
+        host tensors, and still serves on the replica's card)."""
+        t0 = time.perf_counter()
         if model_cfg is None:
             model_cfg = LlamaConfig.tiny()
         self.model_cfg = model_cfg
         if params is None:
             params = init_params(model_cfg, seed, device=device)
+        else:
+            params = params.to(resolve_device(device))
         self.engine = InferenceEngine(
             model_cfg, params, engine_cfg or EngineConfig()
         ).start()
         self.engine.attach_node_drain_listener()
+        self._init_s = time.perf_counter() - t0
         self._metrics_server = None
         if export_metrics and GLOBAL_CONFIG.metrics_export_enabled:
             # a replica exports the engine gauges from an auto-port
@@ -232,6 +255,32 @@ class LLMServer:
             return None
         return f"{self._metrics_server.host}:{self._metrics_server.port}"
 
+    def testing_device_info(self) -> Dict[str, Any]:
+        """Test hook: where this replica runs (the port's own; the reference's replica
+        runs on the TPU its process owns): its pid and
+        ``CUDA_VISIBLE_DEVICES``, the engine's device and, on a card, its
+        name and this process's peak allocated memory; the seconds the
+        server took to build (params, engine, warmup); the f32 matmul
+        precision; and the launches of the port's flash-attention kernels
+        in this process (the serving path has none)."""
+        import torch
+
+        from ray_tpu_torch.ops import attention
+
+        dev = self.engine.runner.device
+        on_card = dev.type == "cuda"
+        return {
+            "pid": os.getpid(),
+            "cuda_visible_devices": os.environ.get("CUDA_VISIBLE_DEVICES"),
+            "device": str(dev),
+            "device_name": torch.cuda.get_device_name(dev) if on_card else None,
+            "max_memory_allocated_bytes": (
+                torch.cuda.max_memory_allocated(dev) if on_card else None),
+            "init_s": self._init_s,
+            "float32_matmul_precision": torch.get_float32_matmul_precision(),
+            "flash_launches": {fn.__name__: fn.launches for fn in attention.KERNELS},
+        }
+
     def begin_drain(
         self, grace_s: Optional[float] = None, migrate: bool = False
     ) -> None:
@@ -260,8 +309,9 @@ class LLMServer:
         )
 
     def __del__(self):
-        if sys.is_finalizing():
-            # interpreter exit: the engine and metrics threads are daemons
+        if sys is None or sys.is_finalizing():
+            # interpreter exit (late in it, this module's globals are
+            # already None): the engine and metrics threads are daemons
             # that can no longer run, so joining or shutting them down
             # here would wait on them forever
             return
@@ -271,3 +321,75 @@ class LLMServer:
                 self._metrics_server.stop()
         except Exception:
             pass
+
+
+def llm_deployment(
+    model_cfg=None,
+    *,
+    engine: Any = None,
+    name: str = "llm",
+    num_replicas: int = 1,
+    max_concurrent_queries: int = 32,
+    ray_actor_options: Optional[Dict[str, Any]] = None,
+    route_prefix: Optional[str] = "/llm",
+    seed: int = 0,
+    autoscaling_config=None,
+    version: Optional[str] = None,
+    kv_tier: bool = False,
+    disaggregated: bool = False,
+):
+    """Build a Serve deployment serving ``model_cfg`` through a
+    continuous-batching engine (the ``serve.llm`` entry point).
+
+    ``serve.run(llm_deployment(cfg).bind())`` → DeploymentHandle whose
+    ``stream(request, _method="generate")`` yields tokens and whose
+    ``remote(request)`` returns the whole generation. ``num_replicas``
+    scales out: each replica hosts its own engine (same ``seed`` → same
+    params → identical generations), and the router scores replicas by
+    outstanding tokens blended with prefix-cache affinity. Pin
+    ``version`` to make a num_replicas redeploy an in-place scale instead
+    of a rolling replacement.
+
+    ``bind(**overrides)`` passes ``seed`` and any override through to
+    :class:`LLMServer`: ``device=`` (a replica serves on ``cuda`` unless
+    told otherwise) or ``params=`` (a param module, shipped to each
+    replica as host bytes and moved onto the replica's device). On the
+    card give each replica a GPU lease with ``ray_actor_options={"num_gpus":
+    1}``; on the CPU bind ``device="cpu"``, with ``params=`` too.
+
+    ``kv_tier=True`` and ``disaggregated=True`` (the cluster KV prefix
+    tier and the split prefill/decode pools) are not ported yet and
+    raise ``NotImplementedError``; the reference's options of the split
+    pools (``prefill_replicas``, ``decode_replicas``,
+    ``prefill_autoscaling_config``, ``prefill_actor_options``) come with
+    them."""
+    if kv_tier or disaggregated:
+        feature = "disaggregated=True" if disaggregated else "kv_tier=True"
+        raise NotImplementedError(
+            f"llm_deployment({feature}) " + _NOT_PORTED.format(_KV_ITEM))
+    from ray_tpu_torch import serve
+
+    dep = serve.deployment(
+        name=name,
+        num_replicas=num_replicas,
+        max_concurrent_queries=max_concurrent_queries,
+        ray_actor_options=ray_actor_options,
+        route_prefix=route_prefix,
+        autoscaling_config=autoscaling_config,
+        version=version,
+    )(LLMServer)
+
+    class _BoundDeployment:
+        """Deployment with the model/engine config pre-bound."""
+
+        def __init__(self, inner):
+            self._inner = inner
+
+        def bind(self, **overrides):
+            kwargs = {"seed": seed, **overrides}
+            return self._inner.bind(model_cfg, engine, **kwargs)
+
+        def __getattr__(self, item):
+            return getattr(self._inner, item)
+
+    return _BoundDeployment(dep)

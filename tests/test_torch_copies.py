@@ -78,7 +78,11 @@ COPIES = {
     # a pooled worker promoted to a GPU undoes the daemon's
     # CUDA_VISIBLE_DEVICES="" pin (not JAX_PLATFORMS=cpu), and refuses
     # (returns False) when CUDA already initialised in the process
-    "core/core_worker": (("CoreWorker.w_set_accelerator_env",), (), ()),
+    # ... and the streams lock is re-entrant: the reference's plain Lock
+    # deadlocks when a collection, run while a thread holds it, finalises
+    # a dropped generator whose __del__ abandons its stream on that thread
+    # (test_torch_runtime.py::test_stream_abandoned_by_gc_under_the_streams_lock)
+    "core/core_worker": (("CoreWorker.__init__", "CoreWorker.w_set_accelerator_env"), (), ()),
     "core/exceptions": _SAME,
     "core/execution": _SAME,
     "core/function_manager": _SAME,
@@ -178,6 +182,18 @@ COPIES = {
     "util/reaper": _SAME,
     "util/scheduling_strategies": _SAME,
     "util/state": _SAME,
+    # --- the serve layer and the KV data plane its router imports ---
+    "inference/kv_transfer": _SAME,
+    "serve/__init__": _SAME,
+    "serve/batching": _SAME,
+    "serve/config": _SAME,
+    "serve/controller": _SAME,
+    "serve/ingress": _SAME,
+    "serve/loadgen": _SAME,
+    "serve/multiplex": _SAME,
+    "serve/proxy": _SAME,
+    "serve/replica": _SAME,
+    "serve/router": _SAME,
 }
 
 

@@ -139,15 +139,61 @@ def test_streaming_generator_consumed_before_completion(cluster):
     assert t_first < t_all - 1.0, (t_first, t_all)
 
 
+def test_stream_abandoned_by_gc_under_the_streams_lock(cluster):
+    """A generator dropped into a reference cycle is finalised by whatever
+    collection runs next, on whatever thread runs it, and its ``__del__``
+    abandons its stream under the owner's streams lock. A collection that
+    runs while that thread already holds the lock (an allocation inside
+    ``create_stream`` or ``_on_stream_item``) must not deadlock it."""
+    import gc
+
+    from ray_tpu_torch.core import api
+
+    @rt.remote(num_returns="streaming")
+    def endless():
+        i = 0
+        while True:
+            time.sleep(0.05)
+            yield i
+            i += 1
+
+    backend = api._global_worker().backend
+    gen = endless.remote()
+    tid = gen._task_id
+    assert rt.get(next(iter(gen)), timeout=60) == 0
+    cycle = [gen]
+    cycle.append(cycle)
+    del gen, cycle
+    lock = backend._streams_lock
+    with lock:
+        assert lock.acquire(timeout=1), "the streams lock is not re-entrant"
+        lock.release()
+        gc.collect()  # finalises the generator here, under the lock
+        assert tid not in backend._streams
+    with lock:
+        assert tid not in backend._streams
+
+
+def _worker_pids(cluster):
+    return set(find_runtime_pids(("ray_tpu_torch.core.worker_main",),
+                                 controller_addr=f"127.0.0.1:{cluster.controller_port}"))
+
+
 def test_gpu_lease_promotes_a_pooled_worker(cluster):
-    """A CPU task sees no GPU; a num_gpus=1 task then lands on the same
-    pooled worker, promoted to GPU 0, which is retired after its lease and
-    the GPU handed back."""
+    """A CPU task sees no GPU; a num_gpus=1 task then lands on a worker
+    taken from the pool (one that was already running, not a cold start),
+    promoted to GPU 0, which is retired after its lease and the GPU handed
+    back. The pool may hold more idle workers than the CPU task's (an
+    owner's spare lease returns its worker after the task's), and it hands
+    out the one returned last, so the GPU task need not land on the CPU
+    task's worker."""
     cpu_pid, cpu_env = rt.get(_device_env.remote())
     assert cpu_env == ""
     _wait_leases_returned()
+    pooled = _worker_pids(cluster)  # no lease is held: all idle or actors
+    assert cpu_pid in pooled
     gpu_pid, gpu_env = rt.get(_device_env.options(num_gpus=1).remote())
-    assert (gpu_pid, gpu_env) == (cpu_pid, "0")
+    assert gpu_env == "0" and gpu_pid in pooled
     _wait_leases_returned()  # the GPU is back in the pool
     assert _pid_gone(gpu_pid)  # GPU-bound: retired, not pooled
     assert rt.get(_device_env.remote())[1] == ""
@@ -186,11 +232,14 @@ def test_added_node_reaches_node_event_listener(cluster):
 
 
 def test_import_loads_neither_torch_nor_jax():
-    code = "import sys, ray_tpu_torch; print('torch' in sys.modules, 'jax' in sys.modules)"
+    """Neither the package nor its serve layer (whose LLM deployment is
+    reached lazily) loads torch or jax, or anything of ``ray_tpu``."""
+    code = ("import sys, ray_tpu_torch, ray_tpu_torch.serve; "
+            "print('torch' in sys.modules, 'jax' in sys.modules, 'ray_tpu' in sys.modules)")
     out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
                          timeout=60, cwd=str(ROOT))
     assert out.returncode == 0, out.stderr
-    assert out.stdout.split() == ["False", "False"]
+    assert out.stdout.split() == ["False", "False", "False"]
 
 
 def test_stream_timing_separates_bursts():

@@ -64,7 +64,7 @@ def _engine(cfg, params, **overrides):
 
 def _server(cfg, params, **overrides):
     return LLMServer(cfg, EngineConfig(**{**ENGINE, **overrides}), params=params,
-                     export_metrics=False)
+                     export_metrics=False, device="cpu")
 
 
 def _flat(chunks):
@@ -396,6 +396,8 @@ def test_server_surface(cfg, params):
         pytest.skip("a card is present: LLMServer() would build on it")
     with pytest.raises(RuntimeError, match="no CUDA device"):
         LLMServer(cfg, EngineConfig(**ENGINE))  # params=None: cuda by default
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        LLMServer(cfg, EngineConfig(**ENGINE), params=params)  # given params: cuda too
     server = LLMServer(cfg, EngineConfig(**ENGINE), seed=0, device="cpu")
     try:
         assert server.engine.runner.device.type == "cpu"
