@@ -133,7 +133,39 @@ JSON line on stdout:
    must end with 32 tokens and no error, and the engine must read
    draining with nothing running and every block back; (e) after
    ``serve.shutdown()`` and ``shutdown()`` no process of the cluster may
-   survive.
+   survive. It returns (b)'s gap for the next phase to print beside its own.
+10. kv_migration (the flash kernels' counts set to 0 before it and read
+   after, in this process and in every replica, all 0): KV migration and
+   the cluster KV tier. (a) f32 at 2 layers, no cluster: 8 requests (4
+   greedy, 4 seeded at 0.8, prompts of 40-200 tokens, none a whole number
+   of blocks), each exported by one ``LLMServer`` (``prefill_export``)
+   and streamed by another with the descriptor as ``kv_import``, must
+   equal a plain server's stream byte for byte, with the importer's
+   prefix hit covering the descriptor's tokens, 8 transfers and no
+   fallback; a descriptor with a wrong host type, element type or digest
+   must be refused, counted, and still give the plain stream; (b) full
+   Llama-2-7B in bf16, the driver on a fresh cluster of the port's (so
+   the payload goes through the node daemon's shared memory): 16
+   requests (prompts of 256-1024 tokens) exported by A, imported by B,
+   and sent cold to C, three servers sharing one params object
+   (``SERVE_ENGINE`` with ``kv_transfer_enabled``): the migration used in
+   16 of 16 with no fallback, every block back, no shape after warmup; it
+   prints per request and as p50/max the blocks and bytes moved, the
+   ``kv_export`` ledger stage, publish, fetch and ``kv_import`` ms, GB/s
+   each way, B's TTFT after the handoff against C's cold TTFT, and how
+   many streams equal the cold one (bf16: reported, not gated); (c)
+   ``llm_deployment(kv_tier=True)``, one ``num_gpus=1`` replica in f32 at
+   2 layers: ``kill_mid_decode`` under 4 streams sharing a 3-block
+   prefix: the streams equal the undisturbed ones, the replacement
+   adverts the shared chain it recovered from the daemon's registry,
+   faults tier blocks in and admits every resumed stream with its prefix
+   warm (it prints the kill-to-first-resumed-token gap beside phase 9's);
+   then that replica is unrouted (scaled to 0) and drained with
+   ``migrate=True`` under 2 live streams, one decoding and one
+   mid-prefill under a 0.5 s stall: the mid-prefill stream's written
+   blocks must reach the tier, the controller reaps the replica, the
+   deployment scales back to 1, and both streams finish on the new
+   replica equal to the undisturbed ones, the decoding one by fault-in.
 
 Then the ``kernels`` summary line, the ``nvidia-smi`` line, and last the
 ``{"ok": true, "device": ...}`` line. Any failed check raises: the script
@@ -1561,7 +1593,8 @@ def phase_serve_deployment(torch, A, L, smi: str, serve_summary: dict):
     replica bound ``params=`` made here serves them on its card; (c) full
     Llama-2-7B in bf16 answering the serve phase's traffic through the
     handle, then one request over HTTP; (d) a drain with 4 live streams;
-    (e) no process survives shutdown."""
+    (e) no process survives shutdown. Returns (b)'s gap from the kill to
+    the first resumed token."""
     import gc
     import json
     import os
@@ -1658,6 +1691,7 @@ def phase_serve_deployment(torch, A, L, smi: str, serve_summary: dict):
                   "available_gpu_with_replacement": rt.available_resources().get("GPU", 0),
                   "seconds": time.perf_counter() - t0}
         emit(part_b)
+        kill_gap_s = gaps[cut]
         check(part_b["stream_equals_undisturbed"] and len(toks) == 16,
               "the resumed stream equals the undisturbed one, no gap and no repeat")
         check(part_b["resumes"] >= 1, "the router resumed the stream")
@@ -1831,6 +1865,518 @@ def phase_serve_deployment(torch, A, L, smi: str, serve_summary: dict):
           "left_after": left, "seconds": time.perf_counter() - t_phase})
     check(len(pids) >= 2 and not left,
           f"no process of the cluster ({len(pids)} before) survives shutdown: {left}")
+    return kill_gap_s
+
+
+# ---------------------------------------------------------------------------
+# 10. kv_migration: prefill_export -> kv_import handoffs and the KV tier
+
+
+#: (a): the f32 handoffs, then one refused descriptor per wrong field
+KV_F32_HANDOFFS = 8
+#: (b): the 7B handoffs and each stream's new tokens
+KV_7B_HANDOFFS, KV_NEW_TOKENS = 16, 16
+#: (c): the shared prefix (3 blocks of 16) of the streams the kill cuts
+KV_SHARED = 48
+
+
+def first_split(a, b):
+    """The first position where two token lists differ (None: equal)."""
+    return next((i for i, (p, q) in enumerate(zip(a, b)) if p != q),
+                None if len(a) == len(b) else min(len(a), len(b)))
+
+
+def odd_lens(rs, lo, hi, n):
+    """``n`` prompt lengths in [lo, hi], none a whole number of blocks."""
+    return [int(x) + 1 if x % 16 == 0 else int(x) for x in rs.randint(lo, hi + 1, size=n)]
+
+
+def kv_requests(rs, vocab, lens, tag, new_tokens):
+    """Even requests greedy, odd ones seeded at temperature 0.8."""
+    return [dict(prompt=[int(t) for t in rs.randint(1, vocab, size=n)], max_new_tokens=new_tokens,
+                 request_id=f"{tag}{i}",
+                 **({} if i % 2 == 0 else dict(temperature=0.8, seed=500 + i)))
+            for i, n in enumerate(lens)]
+
+
+def kv_handoff_f32(torch, L, smi):
+    """(a) f32 at 2 layers with no cluster (descriptors carry the payload
+    inline): each request exported by A and imported by B must stream
+    what a plain server streams, byte for byte, with B's prefix hit
+    covering the exported tokens; then a descriptor with a wrong host
+    type, a wrong block size or a wrong digest must be refused, counted
+    as a fallback, and still give the plain stream."""
+    import gc
+
+    import numpy as np
+    from ray_tpu_torch.inference import EngineConfig, LLMServer, kv_transfer
+
+    t0 = time.perf_counter()
+    cfg = L.LlamaConfig.llama2_7b(n_layers=2, dtype=torch.float32)
+    ec = EngineConfig(**LLM_F32_ENGINE, kv_transfer_enabled=True)
+    a, b, plain = (LLMServer(cfg, ec, seed=1, export_metrics=False) for _ in range(3))
+    rs = np.random.RandomState(43)
+    reqs = kv_requests(rs, cfg.vocab_size, odd_lens(rs, 40, 200, KV_F32_HANDOFFS + 3), "f",
+                       KV_NEW_TOKENS)
+    m = kv_transfer.migration_metrics()
+    fb = m["fallbacks"]._values
+    transfers0, fallbacks0 = m["transfers"]._values.get((), 0.0), sum(fb.values())
+    rows = []
+    for r in reqs[:KV_F32_HANDOFFS]:
+        want = plain(r)["tokens"]
+        desc = a.prefill_export(r)
+        saved0 = b.engine.blocks.prefix_tokens_saved_total
+        got = b({**r, "kv_import": desc})["tokens"]
+        rows.append({"prompt_len": len(r["prompt"]), "temperature": r.get("temperature", 0.0),
+                     "exported_tokens": desc["tokens"], "inline": desc["inline"] is not None,
+                     "prefix_hit_tokens": b.engine.blocks.prefix_tokens_saved_total - saved0,
+                     "equal": got == want})
+    transfers = m["transfers"]._values.get((), 0.0) - transfers0
+    fallbacks = sum(fb.values()) - fallbacks0
+    refusals = []
+    for r, (field, bad, reason) in zip(reqs[KV_F32_HANDOFFS:], (
+            ("dtype", "uint16", "shape_mismatch"), ("block_size", 32, "shape_mismatch"),
+            ("crc32", None, "transfer"))):
+        desc = a.prefill_export(r)
+        wrong = {**desc, field: desc["crc32"] ^ 0xFF if bad is None else bad}
+        before, saved0 = fb.get((reason,), 0.0), b.engine.blocks.prefix_tokens_saved_total
+        got = b({**r, "kv_import": wrong})["tokens"]
+        refusals.append({"field": field, "reason": reason,
+                         "counted": fb.get((reason,), 0.0) - before,
+                         "prefix_hit_tokens": b.engine.blocks.prefix_tokens_saved_total - saved0,
+                         "equal": got == plain(r)["tokens"]})
+    part = {"phase": "kv_migration", "part": "a_handoff_f32",
+            "config": "LlamaConfig.llama2_7b(n_layers=2, dtype=float32)",
+            "reduced": ["n_layers 32 -> 2"], "tf32": False,
+            "engine": dict(LLM_F32_ENGINE, kv_transfer_enabled=True), "handoffs": rows,
+            "equal": sum(r["equal"] for r in rows), "transfers": transfers,
+            "fallbacks": fallbacks, "refusals": refusals,
+            "seconds": time.perf_counter() - t0, "nvidia_smi": smi}
+    emit(part)
+    check(part["equal"] == KV_F32_HANDOFFS,
+          f"every f32 handoff streams the plain stream byte for byte: {rows}")
+    check(all(r["prefix_hit_tokens"] == r["exported_tokens"] > 0 for r in rows),
+          f"B's prefix hit covers every descriptor's tokens: {rows}")
+    check(all(r["inline"] for r in rows), "with no cluster the payload rides the descriptor")
+    check(transfers == KV_F32_HANDOFFS and fallbacks == 0,
+          f"{KV_F32_HANDOFFS} transfers and no fallback: {transfers}, {fallbacks}")
+    check(all(r["counted"] == 1 and r["prefix_hit_tokens"] == 0 and r["equal"]
+              for r in refusals), f"each wrong descriptor is refused and counted: {refusals}")
+    del a, b, plain
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def kv_handoff_7b(torch, L, smi):
+    """(b) full Llama-2-7B in bf16, the driver on the port's cluster (so
+    ``publish`` and ``fetch`` go through the node daemon's shared memory):
+    A exports, B imports and decodes, C (the same configuration) serves
+    the same request cold. After each handoff the cache blocks that hold
+    the exported prefix are compared bit for bit on the card: B's (the
+    imported ones) with A's, and with C's (A and C prefill with the same
+    buckets). Returns the TTFT quantiles."""
+    import gc
+
+    import numpy as np
+    from ray_tpu_torch.inference import EngineConfig, LLMServer, kv_transfer
+    from ray_tpu_torch.observability import slo
+
+    cfg = L.LlamaConfig.llama2_7b()
+    params = L.init_params(cfg, 0)
+    t0 = time.perf_counter()
+    ec = EngineConfig(**SERVE_ENGINE, kv_transfer_enabled=True)
+    a, b, c = (LLMServer(cfg, ec, params=params, export_metrics=False) for _ in range(3))
+    warmup_s = time.perf_counter() - t0
+    rs = np.random.RandomState(47)
+    reqs = kv_requests(rs, cfg.vocab_size, [int(n) for n in rs.randint(256, 1025, size=KV_7B_HANDOFFS)],
+                       "b", KV_NEW_TOKENS)
+    # the ledger stages of this part's requests, all of them kept
+    slo._RECORDER = slo.FlightRecorder(slow_slots=4 * KV_7B_HANDOFFS)
+    # time publish and fetch where LLMServer calls them
+    timings = {"publish": [], "fetch": []}
+    originals = {name: getattr(kv_transfer, name) for name in timings}
+
+    def timed(name):
+        def call(*args, **kw):
+            t = time.perf_counter()
+            try:
+                return originals[name](*args, **kw)
+            finally:
+                timings[name].append(time.perf_counter() - t)
+        return call
+
+    m = kv_transfer.migration_metrics()
+    transfers0 = m["transfers"]._values.get((), 0.0)
+    fallbacks0 = sum(m["fallbacks"]._values.values())
+    rows, streams = [], []
+    for name in timings:
+        setattr(kv_transfer, name, timed(name))
+    try:
+        for i, r in enumerate(reqs):
+            t = time.perf_counter()
+            first, cold = None, []
+            for chunk in c.generate({**r, "request_id": f"c{i}"}):
+                first = first or time.perf_counter()
+                cold += chunk
+            ttft_cold = first - t
+            t = time.perf_counter()
+            desc = a.prefill_export({**r, "request_id": f"x{i}"})
+            t_b = time.perf_counter()
+            saved0 = b.engine.blocks.prefix_tokens_saved_total
+            first, got = None, []
+            for chunk in b.generate({**r, "request_id": f"h{i}", "kv_import": desc}):
+                first = first or time.perf_counter()
+                got += chunk
+            prefix = r["prompt"][: desc["tokens"]]
+            ids = {k: prefix_blocks(s, prefix) for k, s in (("a", a), ("b", b), ("c", c))}
+            stages = {e["request_id"]: e["stages"] for e in slo.flight_recorder().snapshot()}
+            n, export_s = desc["size"], stages[f"x{i}"]["kv_export"]
+            import_s, fetch_s = stages[f"h{i}"]["kv_import"], timings["fetch"][-1]
+            rows.append({
+                "prompt_len": len(r["prompt"]), "temperature": r.get("temperature", 0.0),
+                "exported_blocks": desc["shape"][2], "exported_tokens": desc["tokens"],
+                "bytes": n, "through_store": desc["object_id"] is not None,
+                "prefix_hit_tokens": b.engine.blocks.prefix_tokens_saved_total - saved0,
+                "kv_export_ms": export_s * 1e3, "publish_ms": timings["publish"][-1] * 1e3,
+                "fetch_ms": fetch_s * 1e3, "kv_import_ms": import_s * 1e3,
+                "gather_gbps": n / export_s / 1e9, "publish_gbps": n / timings["publish"][-1] / 1e9,
+                "scatter_gbps": n / max(import_s - fetch_s, 1e-9) / 1e9,
+                "ttft_b_s": first - t_b, "ttft_handoff_s": first - t, "ttft_cold_s": ttft_cold,
+                "tokens": len(got), "first_split": first_split(got, cold),
+                "blocks_b_equal_a": blocks_equal(torch, b, a, ids["b"], ids["a"]),
+                "blocks_b_equal_c": blocks_equal(torch, b, c, ids["b"], ids["c"])})
+            streams.append((got, cold))
+    finally:
+        for name, fn in originals.items():
+            setattr(kv_transfer, name, fn)
+    transfers = m["transfers"]._values.get((), 0.0) - transfers0
+    fallbacks = sum(m["fallbacks"]._values.values()) - fallbacks0
+    servers = {"a": a, "b": b, "c": c}
+    for s in servers.values():
+        s.engine.wait_idle(60)
+    used = {k: s.engine.blocks.used_blocks for k, s in servers.items()}
+    shapes = {k: s.engine.runner.recompiles_after_warmup() for k, s in servers.items()}
+
+    def q(key):
+        return quantiles([r[key] for r in rows])
+
+    part = {"phase": "kv_migration", "part": "b_handoff_7b", "config": "LlamaConfig.llama2_7b()",
+            "reduced": [], "engine": dict(SERVE_ENGINE, kv_transfer_enabled=True),
+            "new_tokens": KV_NEW_TOKENS, "warmup_s_three_servers": warmup_s,
+            "handoffs": rows,
+            # a prompt of whole blocks recomputes its last token (COW)
+            "migration_used": sum(r["prefix_hit_tokens"] == r["exported_tokens"]
+                                  - (r["prompt_len"] == r["exported_tokens"]) > 0 for r in rows),
+            "transfers": transfers, "fallbacks": fallbacks,
+            **{k: q(k) for k in ("exported_blocks", "bytes", "kv_export_ms", "publish_ms",
+                                 "fetch_ms", "kv_import_ms", "gather_gbps", "publish_gbps",
+                                 "scatter_gbps", "ttft_b_s", "ttft_handoff_s", "ttft_cold_s")},
+            "streams_equal_cold": sum(r["first_split"] is None for r in rows),
+            "first_splits": [r["first_split"] for r in rows if r["first_split"] is not None],
+            # the imported prefix, bit for bit: B against the exporter A
+            # (the handoff) and against the cold server C (the prefill)
+            "prefix_blocks_b_equal_a": sum(r["blocks_b_equal_a"] for r in rows),
+            "prefix_blocks_b_equal_c": sum(r["blocks_b_equal_c"] for r in rows),
+            "split_with_prefix_equal_c": sum(r["first_split"] is not None and r["blocks_b_equal_c"]
+                                             for r in rows),
+            "used_blocks": used, "recompiles_after_warmup": shapes,
+            "seconds": time.perf_counter() - t0, "nvidia_smi": smi}
+    emit(part)
+    check(part["migration_used"] == KV_7B_HANDOFFS and all(r["through_store"] for r in rows),
+          f"every 7B handoff went through the store and B's prefix hit: {part['migration_used']}")
+    check(transfers == KV_7B_HANDOFFS and fallbacks == 0,
+          f"{KV_7B_HANDOFFS} transfers and no fallback: {transfers}, {fallbacks}")
+    check(part["prefix_blocks_b_equal_a"] == KV_7B_HANDOFFS,
+          "every imported bf16 prefix is bit for bit the exporter's blocks: "
+          f"{[r['blocks_b_equal_a'] for r in rows]}")
+    check(all(len(got) == KV_NEW_TOKENS == len(cold) for got, cold in streams),
+          f"every stream has {KV_NEW_TOKENS} tokens")
+    check(used == {"a": 0, "b": 0, "c": 0}, f"every block came back in each pool: {used}")
+    check(shapes == {"a": 0, "b": 0, "c": 0}, f"no new shape after warmup: {shapes}")
+    del a, b, c, servers, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {k: part[k] for k in ("ttft_b_s", "ttft_cold_s")}
+
+
+def prefix_blocks(server, tokens):
+    """The cache blocks a server's prefix index holds for the full blocks
+    of ``tokens`` (None for one it does not hold)."""
+    bm = server.engine.blocks
+    with bm._lock:
+        return [bm._index.get(d) for d in chain_digests(tokens, bm.block_size)]
+
+
+def blocks_equal(torch, s, t, ids_s, ids_t) -> bool:
+    """Whether blocks ``ids_s`` of server ``s``'s cache hold the same bits
+    as blocks ``ids_t`` of ``t``'s, K and V, on the card."""
+    if None in ids_s or None in ids_t or len(ids_s) != len(ids_t):
+        return False
+    cs, ct = s.engine.runner.cache, t.engine.runner.cache
+    with torch.inference_mode():
+        for key in ("k", "v"):
+            x, y = cs[key][:, ids_s], ct[key][:, ids_t]
+            bits = {2: torch.int16, 4: torch.int32}[x.element_size()]
+            if not torch.equal(x.view(bits), y.view(bits)):
+                return False
+    return True
+
+
+def metric_total(replica_info, name) -> float:
+    """A counter family's total on a replica's own /metrics endpoint."""
+    import urllib.request
+
+    body = urllib.request.urlopen(f"http://{replica_info}/metrics", timeout=30).read().decode()
+    return sum(float(line.rsplit(" ", 1)[1]) for line in body.splitlines()
+               if line.startswith(name) and " " in line)
+
+
+def kv_tier_cluster(torch, L, smi, sd_gap_s):
+    """(c) ``llm_deployment(kv_tier=True)`` with one ``num_gpus=1`` replica,
+    f32 at 2 layers: (i) the replica SIGKILLed mid-decode under 4 streams
+    sharing a 3-block prefix; the replacement re-adopts the tier and the
+    streams resume by fault-in; (ii) that replica unrouted (scaled to 0),
+    drained with ``migrate=True`` under 2 live streams (one decoding, one
+    mid-prefill under a 0.5 s stall), reaped, and the deployment scaled
+    back to 1: the streams finish on the new replica."""
+    import gc
+    import threading
+
+    import numpy as np
+    import ray_tpu_torch as rt
+    from ray_tpu_torch import serve
+    from ray_tpu_torch.inference import EngineConfig, LLMServer, kv_transfer
+    from ray_tpu_torch.observability.rpc_metrics import (
+        STREAM_RESUME_REPLAY_TOKENS,
+        STREAM_RESUMES,
+    )
+    from ray_tpu_torch.serve.controller import get_or_create_controller
+
+    t0 = time.perf_counter()
+    cfg = L.LlamaConfig.llama2_7b(n_layers=2, dtype=torch.float32)
+    rs = np.random.RandomState(53)
+    shared = [int(t) for t in rs.randint(1, cfg.vocab_size, size=KV_SHARED)]
+    kill_reqs = [dict(prompt=shared + [int(t) for t in rs.randint(1, cfg.vocab_size, size=2)],
+                      max_new_tokens=16, request_id=f"t{i}",
+                      **({} if i % 2 == 0 else dict(temperature=0.8, seed=600 + i)))
+                 for i in range(4)]
+    drain_reqs = [dict(prompt=shared + [7, 9], max_new_tokens=16, request_id="d0"),
+                  dict(prompt=[int(t) for t in rs.randint(1, cfg.vocab_size, size=2000)],
+                       max_new_tokens=16, request_id="d1", temperature=0.8, seed=611)]
+    local = LLMServer(cfg, EngineConfig(**LLM_F32_ENGINE), seed=1, export_metrics=False)
+    try:
+        undisturbed = [flat(local.generate(r)) for r in kill_reqs + drain_reqs]
+    finally:
+        local.engine.stop()
+    del local
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    def deployment(n):
+        return serve.llm_deployment(cfg, engine=EngineConfig(**LLM_F32_ENGINE), name="llmtier",
+                                    route_prefix="/llmtier", seed=1, version="v1", kv_tier=True,
+                                    num_replicas=n, max_concurrent_queries=8,
+                                    ray_actor_options={"num_gpus": 1})
+
+    ctrl = get_or_create_controller()
+    handle = serve.run(deployment(1).bind())
+    ready_s = time.perf_counter() - t0
+    (first,) = rt.get(ctrl.get_replicas.remote("llmtier"), timeout=60)
+    info0 = rt.get(handle.method("testing_device_info")(), timeout=60)
+    # a warm request publishes the shared blocks; the gossip carries them
+    # to the router before the kill
+    sd_stream(handle, {"prompt": shared + [5], "max_new_tokens": 2})
+    time.sleep(1.0)
+    adverts0 = rt.get(handle.method("routing_stats")(), timeout=60)["kv_tier"]
+
+    def in_threads(requests):
+        out, errors = [None] * len(requests), []
+
+        def run(i):
+            try:
+                out[i] = sd_stream(handle, requests[i])
+            except Exception as e:  # noqa: BLE001 — re-raised below
+                errors.append(e)
+
+        threads = [threading.Thread(target=run, args=(i,)) for i in range(len(requests))]
+        for th in threads:
+            th.start()
+        return threads, out, errors
+
+    def joined(threads, out, errors):
+        for th in threads:
+            th.join(timeout=300)
+        check(not any(th.is_alive() for th in threads), "client threads finished")
+        if errors:
+            raise errors[0]
+        return out
+
+    # (i) SIGKILL mid-decode under 4 streams
+    t1 = time.perf_counter()
+    resumes0 = STREAM_RESUMES._values.get(("llmtier",), 0.0)
+    replay0 = STREAM_RESUME_REPLAY_TOKENS._values.get((), 0.0)
+    rt.get(handle.method("testing_arm_replica_chaos")(CHAOS_SPEC, CHAOS_SEED), timeout=60)
+    killed = joined(*in_threads(kill_reqs))
+    status = rt.get(ctrl.wait_status.remote("llmtier", min_replicas=1, timeout_s=300), timeout=330)
+    (second,) = rt.get(ctrl.get_replicas.remote("llmtier"), timeout=60)
+    info1 = rt.get(handle.method("testing_device_info")(), timeout=60)
+    stats1 = rt.get(handle.method("engine_stats")(), timeout=60)
+    adverts1 = rt.get(handle.method("routing_stats")(), timeout=60)["kv_tier"]
+    addr1 = rt.get(handle.method("metrics_address")(), timeout=60)
+    hits1 = metric_total(addr1, "raytpu_kv_tier_hits_total")
+    publishes1 = metric_total(addr1, "raytpu_kv_tier_publishes_total")
+    # full blocks of each stream past the shared prefix: all a replacement
+    # that re-adopted the tier may publish (one that did not would publish
+    # the shared chain's 3 blocks as well)
+    own_blocks = sum((len(r["prompt"]) + r["max_new_tokens"] - 1) // 16 - KV_SHARED // 16
+                     for r in kill_reqs)
+    gaps = [max(b - a for a, b in zip(ts, ts[1:])) for _, ts in killed]
+    chain = [d.hex() for d in chain_digests(shared, 16)]
+    part_i = {"phase": "kv_migration", "part": "c1_tier_fault_in",
+              "config": "LlamaConfig.llama2_7b(n_layers=2, dtype=float32)",
+              "reduced": ["n_layers 32 -> 2"], "engine": dict(LLM_F32_ENGINE, kv_tier_enabled=True),
+              "deploy_to_ready_s": ready_s, "spec": CHAOS_SPEC, "seed": CHAOS_SEED,
+              "adverts_before_kill": len(adverts0),
+              "streams_equal": [t == u for (t, _), u in zip(killed, undisturbed[:4])],
+              "resumes": STREAM_RESUMES._values.get(("llmtier",), 0.0) - resumes0,
+              "router_replay_tokens": STREAM_RESUME_REPLAY_TOKENS._values.get((), 0.0) - replay0,
+              "restarts": status["restarts"], "replacement": {k: info1[k] for k in (
+                  "pid", "cuda_visible_devices", "device", "init_s")},
+              "killed_pid_gone": rt_pid_gone(info0["pid"]),
+              "replacement_adverts": len(adverts1),
+              "shared_chain_adverted": all(d in adverts1 for d in chain),
+              "replacement_publishes": publishes1, "streams_own_full_blocks": own_blocks,
+              "replacement_tier_hits": hits1,
+              "replacement_prefix_tokens_saved": stats1["prefix_cache"]["tokens_saved_total"],
+              "prompt_tokens": sum(len(r["prompt"]) for r in kill_reqs),
+              "kill_to_first_resumed_token_s": quantiles(gaps),
+              "serve_deployment_b_kill_to_first_resumed_token_s": sd_gap_s,
+              "seconds": time.perf_counter() - t1, "nvidia_smi": smi}
+    emit(part_i)
+    check(all(part_i["streams_equal"]), "the resumed f32 streams equal the undisturbed ones")
+    check(part_i["resumes"] >= 1 and status["restarts"].get("death") == 1
+          and part_i["killed_pid_gone"] and info1["pid"] != info0["pid"],
+          f"the kill landed mid-stream and the controller replaced the replica: {status}")
+    check(info1["device"] == "cuda:0", "the replacement holds the card")
+    check(part_i["shared_chain_adverted"] and publishes1 <= own_blocks,
+          "the replacement re-adopted the tier (_tier_recover): it adverts the shared chain and "
+          f"published {publishes1} blocks, no more than the streams' own {own_blocks}")
+    check(hits1 > 0, "the replacement faulted tier blocks in")
+    check(part_i["replacement_prefix_tokens_saved"] >= KV_SHARED * len(kill_reqs),
+          "each resumed stream admitted its shared prefix warm: replayed prefill < prompt")
+
+    # (ii) unroute, drain with migrate=True under 2 live streams, reap,
+    # and scale back to 1
+    t2 = time.perf_counter()
+    resumes0 = STREAM_RESUMES._values.get(("llmtier",), 0.0)
+    rt.get(handle.method("testing_arm_replica_chaos")("stall:1.0:0.5:9999", 3), timeout=60)
+    threads, out, errors = in_threads(drain_reqs[:1])
+    time.sleep(1.5)  # d0 decoding
+    more = in_threads(drain_reqs[1:])
+    time.sleep(2.5)  # d1's 8 prefill chunks take about 8 s under the stall
+    serve.run(deployment(0).bind(), _blocking_ready=False)
+    deadline = time.monotonic() + 30
+    # unrouted at the controller and in this handle's router, so the
+    # resumes wait for a new replica instead of meeting the drained one
+    while rt.get(ctrl.get_replicas.remote("llmtier"), timeout=60) or handle._router._replicas:
+        check(time.monotonic() < deadline, "the replica was unrouted")
+        time.sleep(0.05)
+    rt.get(second.handle_request.remote("begin_drain", [30.0, True], {}, ""), timeout=60)
+    serve.run(deployment(1).bind(), _blocking_ready=False)
+    # d1 never finished its prefill on that replica, so only the drain's
+    # migration can have put its first chunk's blocks into the tier
+    ns = adverts1[chain[0]]["tier_ns"]
+    d1_chain = [d.hex() for d in chain_digests(drain_reqs[1]["prompt"][:256], 16)]
+    migrated, migrate_publishes, deadline = [], None, time.monotonic() + 30
+    while time.monotonic() < deadline:
+        migrated = [d for d in d1_chain if d in kv_transfer.tier_list(ns=ns)]
+        try:  # the drained replica's own count, while it still lives
+            migrate_publishes = metric_total(
+                addr1, 'raytpu_kv_tier_publishes_total{trigger="migrate"}')
+        except OSError:
+            pass
+        if len(migrated) == len(d1_chain):
+            break
+        time.sleep(0.1)
+    drained = joined(threads, out, errors) + joined(*more)
+    status = rt.get(ctrl.wait_status.remote("llmtier", min_replicas=1, timeout_s=300), timeout=330)
+    info2 = rt.get(handle.method("testing_device_info")(), timeout=60)
+    addr2 = rt.get(handle.method("metrics_address")(), timeout=60)
+    part_ii = {"phase": "kv_migration", "part": "c2_drain_migrate", "streams": len(drain_reqs),
+               "prompt_lens": [len(r["prompt"]) for r in drain_reqs],
+               "streams_equal": [t == u for (t, _), u in zip(drained, undisturbed[4:])],
+               "lengths": [len(t) for t, _ in drained],
+               "resumes": STREAM_RESUMES._values.get(("llmtier",), 0.0) - resumes0,
+               "mid_prefill_blocks_migrated": len(migrated), "of": len(d1_chain),
+               "drained_pid_gone": rt_pid_gone(info1["pid"]),
+               "new_replica": {k: info2[k] for k in ("pid", "cuda_visible_devices", "device")},
+               "drained_replica_migrate_publishes_last_read": migrate_publishes,
+               "new_replica_tier_hits": metric_total(addr2, "raytpu_kv_tier_hits_total"),
+               "restarts": status["restarts"], "seconds": time.perf_counter() - t2}
+    emit(part_ii)
+    check(all(part_ii["streams_equal"]) and part_ii["lengths"] == [16, 16],
+          f"the drained streams finished on the new replica, equal: {part_ii}")
+    check(part_ii["resumes"] == 2 and part_ii["drained_pid_gone"]
+          and info2["pid"] not in (info0["pid"], info1["pid"]),
+          "both streams resumed on a new replica after the drained one was reaped")
+    check(part_ii["mid_prefill_blocks_migrated"] == len(d1_chain),
+          f"the drain migrated the mid-prefill stream's written blocks: {part_ii}")
+    check(part_ii["new_replica_tier_hits"] > 0, "the decoding stream resumed by tier fault-in")
+    serve.delete("llmtier")
+    wait_gpu_back(rt)
+    return [info0["flash_launches"], info1["flash_launches"], info2["flash_launches"]]
+
+
+def chain_digests(tokens, bs):
+    """Full-block chain digests of ``tokens`` (the tier's key space)."""
+    from ray_tpu_torch.inference.kv_cache import _chain_digest
+
+    out, prev = [], b""
+    for end in range(bs, len(tokens) + 1, bs):
+        prev = _chain_digest(prev, tokens[end - bs : end])
+        out.append(prev)
+    return out
+
+
+def phase_kv_migration(torch, A, L, smi: str, sd_gap_s):
+    """KV migration and the cluster KV tier: (a) f32 handoffs in the
+    driver, (b) full Llama-2-7B bf16 handoffs through the node daemon's
+    shared memory, (c) the tier through ``llm_deployment(kv_tier=True)``
+    on the port's cluster. The path launches no flash kernel."""
+    import gc
+    import os
+
+    import ray_tpu_torch as rt
+    from ray_tpu_torch import serve
+    from ray_tpu_torch.util.reaper import find_runtime_pids
+
+    gc.collect()
+    torch.cuda.empty_cache()  # the earlier phases' engines and caches are gone
+    t_phase = time.perf_counter()
+    A.reset_launch_counts()  # the kv_migration path's run starts here
+    kv_handoff_f32(torch, L, smi)
+    try:
+        rt.init(num_cpus=4)
+        kv_handoff_7b(torch, L, smi)
+        replica_launches = kv_tier_cluster(torch, L, smi, sd_gap_s)
+        launches = {fn.__name__: fn.launches for fn in A.KERNELS}  # read just after
+        pids = find_runtime_pids(spawner_pid=os.getpid())
+        serve.shutdown()
+    finally:
+        try:
+            serve.shutdown()
+        finally:
+            rt.shutdown()
+    deadline = time.monotonic() + 15
+    while find_runtime_pids(spawner_pid=os.getpid()) and time.monotonic() < deadline:
+        time.sleep(0.1)
+    left = find_runtime_pids(spawner_pid=os.getpid())
+    emit({"phase": "kv_migration", "part": "launches", "this_process": launches,
+          "replicas": replica_launches, "processes_before": len(pids), "left_after": left,
+          "seconds": time.perf_counter() - t_phase})
+    check(sum(launches.values()) == 0 and all(sum(r.values()) == 0 for r in replica_launches),
+          "the kv_migration path launches no flash kernel")
+    check(not left, f"no process of the cluster survives shutdown: {left}")
 
 
 def main() -> int:
@@ -1859,7 +2405,8 @@ def main() -> int:
     serve_summary = phase_serve(torch, A, L, smi)
     phase_serve_llm(torch, A, L, smi)
     phase_runtime(torch, K, L, smi, serve_summary)
-    phase_serve_deployment(torch, A, L, smi, serve_summary)
+    sd_gap_s = phase_serve_deployment(torch, A, L, smi, serve_summary)
+    phase_kv_migration(torch, A, L, smi, sd_gap_s)
     emit({"kernels": [
         {"name": k, "route": "cuda", "source": SOURCES[k],
          "replaces": TPU_KERNELS[k][1], "replaces_fn": TPU_KERNELS[k][0],

@@ -20,14 +20,25 @@ Seeded replica chaos (``util/chaos.py::ReplicaFaultPlan``, armed through
 ``testing_replica_chaos`` or per engine through ``testing_fault_plan``) is
 consulted once per step phase, before its device work.
 
+KV-cache migration (``kv_transfer_enabled``): :meth:`prefill_kv` runs only
+a prompt's prefill and gathers its full blocks to the host, and
+:meth:`import_kv_blocks` scatters such a payload into this engine's cache
+and radix index, so the next submit of that prompt admits as a prefix hit
+(disaggregated serving; ``inference/kv_transfer.py`` ships the payload).
+The cluster KV tier (``kv_tier_enabled``) writes full prefix blocks back
+into the node daemon's tier at prefill end, at every decode block
+boundary and when an evicted block was ever hit, adverts them through
+``routing_stats()["kv_tier"]``, re-adopts the daemon's entries at
+:meth:`start` (warm restart), and ``begin_drain(migrate=True)`` flushes
+every in-flight request's written KV there and fails its stream with
+:class:`KvMigrationHandoff`, which the serve router resumes on a survivor.
+Every gather and scatter runs on the step thread, which owns the cache;
+tier publishes run on a thread of their own.
+
 Inside a process of the port's cluster (a serve replica),
 ``attach_node_drain_listener`` subscribes to node events, and a DRAINING
 push for the replica's own node starts ``begin_drain``; without a cluster it
-returns None and only an explicit ``begin_drain()`` drains. Not ported yet
-(each raises
-``NotImplementedError`` naming the ROADMAP): KV-cache migration and the
-cluster KV tier (``kv_transfer_enabled``, ``kv_tier_enabled``,
-``begin_drain(migrate=True)``, ``prefill_kv``, ``import_kv_blocks``).
+returns None and only an explicit ``begin_drain()`` drains.
 """
 
 from __future__ import annotations
@@ -41,15 +52,18 @@ import signal
 import threading
 import time
 import uuid
-from collections import deque
+from collections import OrderedDict, deque
 from dataclasses import dataclass
 from typing import Any, Dict, Iterator, List, Optional, Sequence
 
 import numpy as np
+import torch
 
+from ray_tpu_torch import _host
 from ray_tpu_torch.core.config import GLOBAL_CONFIG
 from ray_tpu_torch.core.deadline import Deadline, remaining as deadline_remaining
-from ray_tpu_torch.inference.kv_cache import PagedBlockManager
+from ray_tpu_torch.inference.kv_cache import PagedBlockManager, _chain_digest
+from ray_tpu_torch.inference.kv_transfer import KV_MIGRATION_MARKER
 from ray_tpu_torch.inference.model_runner import PagedModelRunner
 from ray_tpu_torch.inference.scheduler import (
     CANCELLED,
@@ -70,9 +84,6 @@ from ray_tpu_torch.observability import slo as _slo
 _END = object()  # stream sentinel
 
 logger = logging.getLogger(__name__)
-
-#: where the features that are not ported yet stand
-_NOT_PORTED = "is not ported yet (ROADMAP Queue A: {})"
 
 # -- replica chaos (util/chaos.py::ReplicaFaultPlan) -------------------------
 _RPLAN_CACHE = None
@@ -97,6 +108,42 @@ def active_replica_fault_plan():
     return _RPLAN_CACHE.active()
 
 
+#: folded into every tier namespace of the port: the port's KV and the
+#: reference's never share a key, even on one node's registry
+_TIER_BACKEND = b"ray_tpu_torch"
+
+
+def _model_kv_namespace(model_cfg, params, kv_dtype: str) -> str:
+    """Model-identity namespace for cluster KV tier keys. A chain digest
+    names a TOKEN prefix, not the model that computed the KV, and the
+    daemon tier registry is node-global, so tier keys are scoped by a
+    fingerprint of the backend, the port's host directory
+    (:data:`ray_tpu_torch._host.TMP_ROOT`, from ``TMPDIR``), the cache's
+    element type, the model config's repr and, per weight (in name
+    order), its name, shape, dtype, first four values and the exact
+    integer sum of its bit patterns. The values are read through
+    ``.detach().cpu()`` and the sum is an integer one, so the same weights
+    give the same namespace on any device, and two deployments whose
+    weights differ in one value never share one. Every process of one
+    deployment inherits its ``TMPDIR``; two checkouts that run with their
+    own never share a tier key, and so never a shared-memory segment."""
+    h = hashlib.blake2b(digest_size=8)
+    h.update(_TIER_BACKEND + b"\0" + _host.TMP_ROOT.encode() + b"\0")
+    h.update(kv_dtype.encode() + b"\0")
+    h.update(repr(model_cfg).encode())
+    with torch.no_grad():
+        for name, leaf in sorted(params.state_dict().items()):
+            bits = leaf.detach().reshape(-1)
+            bits = bits.view({1: torch.uint8, 2: torch.int16, 4: torch.int32,
+                              8: torch.int64}[bits.element_size()])
+            h.update(name.encode())
+            h.update(str(tuple(leaf.shape)).encode())
+            h.update(str(leaf.dtype).encode())
+            h.update(bits[:4].cpu().numpy().tobytes())
+            h.update(int(bits.sum(dtype=torch.int64)).to_bytes(8, "little", signed=True))
+    return h.hexdigest()
+
+
 def _stable_request_seed(request_id: str) -> int:
     """Process-independent sampling seed derived from a request id.
     ``hash()`` is salted per interpreter (PYTHONHASHSEED), which would
@@ -115,9 +162,12 @@ class RequestFailedError(RuntimeError):
     """The engine gave up on a request (deadline expiry, drain cutoff)."""
 
 
-#: string marker the serve router's resumable-stream failover matches on
-#: (``ray_tpu.inference.kv_transfer.KV_MIGRATION_MARKER``)
-KV_MIGRATION_MARKER = "kv-tier migration handoff"
+class KvMigrationHandoff(RequestFailedError):
+    """A draining replica flushed this in-flight request's FULL KV
+    (prompt + generated) into the cluster tier and handed the stream
+    back: the router resumes it on a survivor, which faults the KV in
+    instead of re-prefilling (its message carries
+    ``KV_MIGRATION_MARKER``, which the router matches)."""
 
 
 @dataclass
@@ -168,10 +218,19 @@ class EngineConfig:
     #: cached blocks are reclaimed LRU-first whenever allocation needs
     #: them, so the cache never starves admission)
     prefix_cache_max_blocks: int = 0
-    #: KV-cache migration (disaggregated prefill/decode serving) and the
-    #: cluster-wide KV prefix tier of the reference: not ported yet, the
-    #: engine raises NotImplementedError when either is set
+    #: KV-cache migration (disaggregated prefill/decode serving): opts
+    #: this engine into the block gather/scatter shapes — run at warmup so
+    #: migrations never meet a new shape — and the export/import request
+    #: modes (prefill_kv / import_kv_blocks). Off by default so plain
+    #: deployments keep their exact compile count.
     kv_transfer_enabled: bool = False
+    #: cluster-wide KV prefix tier (kv_transfer.py tier layer): write
+    #: popular full prefix blocks back into daemon-owned shm storage
+    #: (explicitly at prefill/decode block boundaries, and as the SPILL
+    #: half of the eviction spill-vs-drop policy), advertise them
+    #: through the routing gossip, and serve warm recovery — resume via
+    #: fault-in, warm replica restart, drain-time live migration.
+    #: Implies the gather/scatter shapes at warmup. Off by default.
     kv_tier_enabled: bool = False
     #: speculative decoding (inference/speculative.py): drafts proposed
     #: per decode slot and verified in ONE bucketed target step
@@ -306,10 +365,6 @@ class InferenceEngine:
     def __init__(self, model_cfg, params, engine_cfg: Optional[EngineConfig] = None):
         self.cfg = model_cfg
         self.engine_cfg = ec = engine_cfg or EngineConfig()
-        for flag, item in (("kv_transfer_enabled", "KV migration"),
-                           ("kv_tier_enabled", "the cluster KV tier")):
-            if getattr(ec, flag):
-                raise NotImplementedError(f"EngineConfig.{flag} " + _NOT_PORTED.format(item))
         decode_buckets = ec.resolved_decode_buckets()
         if ec.max_decode_batch > max(decode_buckets):
             # catching this at runtime instead means _round_up_bucket
@@ -330,6 +385,13 @@ class InferenceEngine:
             verify_buckets=ec.resolved_verify_buckets(),
             cache_dtype=ec.cache_dtype,
         )
+        #: model-identity namespace scoping this engine's tier keys (the
+        #: digest names tokens, the daemon registry is node-global)
+        self._tier_ns = ""
+        if ec.kv_tier_enabled:
+            self._tier_ns = GLOBAL_CONFIG.kv_tier_namespace or _model_kv_namespace(
+                model_cfg, params, self.runner.kv_dtype
+            )
         self.blocks = PagedBlockManager(
             ec.num_blocks,
             ec.block_size,
@@ -391,6 +453,36 @@ class InferenceEngine:
         self._preempt_seen = 0
         self._replay_seen = 0
         self._prefix_seen: Dict[str, int] = {}
+        #: queued KV-import jobs, executed BY the step thread at the top
+        #: of each step — the cache belongs to the step thread
+        self._kv_imports: "queue.Queue" = queue.Queue()
+        # -- cluster KV tier --
+        #: tier adverts this replica gossips: digest hex -> routable
+        #: descriptor, MRU-capped at kv_tier_max_adverts. Dropping an
+        #: entry here IS the retraction signal — routers diff advert
+        #: sets per report and purge in one gossip hop.
+        self._tier_adverts: "OrderedDict[str, Dict[str, Any]]" = OrderedDict()
+        #: guards _tier_adverts and _tier_pending: mutated by the step
+        #: thread AND the tier publisher thread, snapshotted by
+        #: routing_stats on the caller's thread
+        self._tier_lock = threading.Lock()
+        #: digests queued for background publish (dedup vs re-enqueue)
+        self._tier_pending: set = set()
+        #: (digest, host kv, trigger) handed to the tier publisher
+        #: thread. Gathers stay ON the step thread but the publish — shm
+        #: write + daemon RPC with a 10s timeout — comes OFF it: a wedged
+        #: daemon would otherwise stall token emission for the whole
+        #: batch at every block boundary. Bounded: overflow drops the
+        #: write-back (best-effort warmth, never backpressure on decode).
+        self._tier_pub_q: "queue.Queue" = queue.Queue(maxsize=256)
+        self._tier_pub_thread: Optional[threading.Thread] = None
+        #: (digest, host kv) spills gathered under the block-manager
+        #: lock, published by the step thread OUTSIDE it
+        self._tier_spill_pending: List[tuple] = []
+        #: drain-with-migration latch (begin_drain(migrate=True))
+        self._migrate_on_drain = False
+        if ec.kv_tier_enabled:
+            self.blocks.set_spill_hook(self._tier_spill)
         # -- speculative decoding --
         #: the draft proposer (None when disabled). Only constructed for
         #: speculative_k > 0, so plain engines keep their exact compile
@@ -443,7 +535,7 @@ class InferenceEngine:
             self.scheduler.spec_k_live = ec.speculative_k
         self.total_steps = 0
         if ec.warmup:
-            self.runner.warmup()
+            self.runner.warmup(kv_io=ec.kv_transfer_enabled or ec.kv_tier_enabled)
             if self.spec is not None and hasattr(self.spec, "warmup"):
                 self.spec.warmup()
         else:
@@ -459,17 +551,57 @@ class InferenceEngine:
                 target=self._loop, daemon=True, name="llm-engine-step"
             )
             self._thread.start()
+        if self.engine_cfg.kv_tier_enabled:
+            if self._tier_pub_thread is None or not self._tier_pub_thread.is_alive():
+                self._tier_pub_thread = threading.Thread(
+                    target=self._tier_publish_loop,
+                    daemon=True,
+                    name="llm-engine-tier-pub",
+                )
+                self._tier_pub_thread.start()
+            self._tier_recover()
         return self
+
+    def _tier_recover(self) -> None:
+        """Warm-restart half of the tier: the local daemon's registry
+        survived whatever killed the previous replica process — re-adopt
+        its entries as OUR adverts so the very next gossip beat makes
+        this replacement routable as prefix-warm. Filtered to OUR model
+        namespace: the registry is node-global, and re-adverting another
+        deployment's entries would route its KV to our model."""
+        from ray_tpu_torch.inference import kv_transfer
+
+        try:
+            entries = kv_transfer.tier_list(ns=self._tier_ns)
+        except Exception:  # noqa: BLE001 — recovery is best-effort
+            return
+        cap = max(1, GLOBAL_CONFIG.kv_tier_max_adverts)
+        with self._tier_lock:
+            for digest_hex, desc in entries.items():
+                if len(self._tier_adverts) >= cap:
+                    break
+                self._tier_adverts[digest_hex] = desc
 
     def stop(self) -> None:
         self._stop.set()
         self._work.set()
         if self._thread is not None:
             self._thread.join(timeout=10)
+        if self._tier_pub_thread is not None:
+            self._tier_pub_thread.join(timeout=10)
+            self._tier_pub_thread = None
         # the step loop is dead: queued/running requests can never emit
         # another token — fail them so callers blocked in tokens() wake
         # instead of hanging on q.get() forever
         self._fail_all(RequestFailedError("engine stopped"))
+        # parked KV importers would likewise wait on a thread that will
+        # never run their job again
+        while True:
+            try:
+                _tokens, _kv, reply = self._kv_imports.get_nowait()
+            except queue.Empty:
+                break
+            reply.put((False, RequestFailedError("engine stopped")))
         self.detach_node_drain_listener()
 
     def _loop(self) -> None:
@@ -497,6 +629,7 @@ class InferenceEngine:
         request_id: Optional[str] = None,
         seed: Optional[int] = None,
         timeout_s: Optional[float] = None,
+        prefill_only: bool = False,
         tenant_class: str = "",
         ledger_stages: Optional[Dict[str, float]] = None,
         record_slo: bool = True,
@@ -504,8 +637,9 @@ class InferenceEngine:
     ) -> str:
         """Enqueue a generation request; returns its id. The ambient
         ``core.deadline`` budget (or explicit ``timeout_s``, whichever is
-        tighter) bounds the request end to end. ``tenant_class`` labels
-        the SLO histograms;
+        tighter) bounds the request end to end. ``prefill_only`` is the
+        KV-migration export mode (use :meth:`prefill_kv`, which also
+        drains the payload). ``tenant_class`` labels the SLO histograms;
         ``ledger_stages`` carries stage durations measured upstream
         (e.g. the KV import that ran before this submit);
         ``record_slo=False`` keeps a resume attempt's warm-replay
@@ -550,6 +684,7 @@ class InferenceEngine:
             eos_token=eos_token,
             deadline=Deadline.after(budget) if budget is not None else None,
             seed=seed,
+            prefill_only=prefill_only,
             tenant_class=str(tenant_class or ""),
             ledger_stages=dict(ledger_stages or {}),
             record_slo=bool(record_slo),
@@ -557,6 +692,7 @@ class InferenceEngine:
                 self.engine_cfg.speculative_k
                 if self.spec is not None
                 and speculative is not False
+                and not prefill_only
                 else 0
             ),
         )
@@ -738,16 +874,21 @@ class InferenceEngine:
     ) -> None:
         """Stop admitting; in-flight (queued + running) requests keep
         decoding until done or the grace window closes, after which the
-        stragglers fail with :class:`RequestFailedError`. ``migrate=True``
-        (hand in-flight KV to the cluster tier) is not ported yet."""
-        if migrate:
-            raise NotImplementedError("begin_drain(migrate=True) " + _NOT_PORTED.format(
-                "KV migration"))
+        stragglers fail with :class:`RequestFailedError`.
+
+        ``migrate=True`` (tier deployments): instead of letting
+        in-flight decodes run the grace window out, the next step
+        flushes each one's FULL KV (prompt + generated) into the cluster
+        tier and fails it with :class:`KvMigrationHandoff`, which the
+        router treats as resumable — the stream continues on a survivor
+        via tier fault-in, client-invisible."""
         grace = GLOBAL_CONFIG.drain_grace_s if grace_s is None else grace_s
         with self._lock:
             self._draining = True
             self.scheduler.admitting = False
             self._drain_deadline = Deadline.after(grace)
+            if migrate and self.engine_cfg.kv_tier_enabled:
+                self._migrate_on_drain = True
         self._work.set()
 
     @property
@@ -797,6 +938,10 @@ class InferenceEngine:
             self._fail_all(
                 RequestFailedError("engine drain grace expired mid-generation")
             )
+        if self._migrate_on_drain:
+            self._migrate_inflight()
+        did_import = self._drain_kv_imports()
+        self._drain_tier_spills()
         plan = self.scheduler.schedule()
         for req in plan.reaped:
             # every reap here is a deadline expiry (queued or running) —
@@ -812,7 +957,7 @@ class InferenceEngine:
                 ),
             )
         if not plan.prefills and not plan.decodes:
-            return not plan.empty
+            return did_import or not plan.empty
         self._consult_replica_chaos(plan)
 
         # timeline timestamps share the module's wall-clock epoch so
@@ -840,8 +985,20 @@ class InferenceEngine:
                 # the prompt's K/V is fully written: index its full
                 # blocks so later requests sharing the prefix skip them
                 self.blocks.register_prefix(req.request_id, prompt)
-                req.state = DECODE
-                self._emit_token(req, self._sample(req, logits))
+                if self.engine_cfg.kv_tier_enabled and not req.prefill_only:
+                    # tier write-back trigger 1: the prompt's full
+                    # blocks become cluster-recoverable the moment they
+                    # exist — a replica killed one token later already
+                    # left its prefill in the tier
+                    self._tier_writeback_full_blocks(req, prompt, "prefill")
+                if req.prefill_only:
+                    # KV-migration export: gather the full blocks to
+                    # host and hand the payload to the waiting exporter
+                    # — no token is ever sampled on this engine
+                    self._complete_prefill_export(req, prompt)
+                else:
+                    req.state = DECODE
+                    self._emit_token(req, self._sample(req, logits))
 
         if plan.decodes:
             # speculative slots peel off the batch: each proposes drafts,
@@ -1008,8 +1165,9 @@ class InferenceEngine:
 
     def _consult_phase_chaos(self, phase: str) -> None:
         """One chaos consult for a named engine phase ("prefill" |
-        "decode"; the KV-migration consults "export" and "import" come
-        with the KV tier, ROADMAP Queue A)."""
+        "decode" | "export" | "import" — the latter two are the
+        KV-migration consult points: a kill there lands exactly
+        mid-handoff, which the disagg fallback ladder must absorb)."""
         chaos = self.testing_fault_plan or active_replica_fault_plan()
         if chaos is None:
             return
@@ -1030,15 +1188,354 @@ class InferenceEngine:
             )
             os.kill(os.getpid(), signal.SIGKILL)
 
-    # -- KV-cache migration (not ported yet) -------------------------------
-    def prefill_kv(self, prompt: Sequence[int], **kw) -> Optional[Dict[str, Any]]:
-        """KV-migration export mode (disaggregated serving)."""
-        raise NotImplementedError("prefill_kv " + _NOT_PORTED.format("KV migration"))
+    # -- KV-cache migration (disaggregated serving) -----------------------
+    def prefill_kv(
+        self,
+        prompt: Sequence[int],
+        *,
+        priority: int = 0,
+        request_id: Optional[str] = None,
+        timeout_s: Optional[float] = None,
+    ) -> Optional[Dict[str, Any]]:
+        """Export mode: run ONLY the prompt's prefill, then gather its
+        FULL KV blocks to host and return the payload ``{"tokens":
+        covered_tokens, "kv": np[2, L, n, bs, n_kv, hd], "block_size",
+        "dtype"}`` — the migration unit ``inference/kv_transfer.py``
+        serializes and ships. ``kv`` is in the runner's host type (bf16
+        as its bits, ``np.uint16``) and ``dtype`` names the cache's
+        element type (``"bfloat16"``, ``"float32"``), which an importer
+        must match. Returns None when the prompt spans no full block
+        (nothing exportable — the caller falls back to plain
+        generation). The prefill itself also populates THIS engine's
+        radix index, so an exporting replica keeps the warm prefix."""
+        rid = self.submit(
+            prompt,
+            max_new_tokens=1,
+            priority=priority,
+            request_id=request_id,
+            timeout_s=timeout_s,
+            prefill_only=True,
+        )
+        q = self._out.get(rid)
+        try:
+            while True:
+                item = q.get(timeout=timeout_s)
+                if item is _END:
+                    return None
+                if isinstance(item, Exception):
+                    raise item
+                if isinstance(item, tuple) and item and item[0] == "kv_export":
+                    return item[1]
+        except queue.Empty:
+            self.cancel(rid)
+            raise TimeoutError(
+                f"kv export of {len(prompt)} prompt tokens not done within "
+                f"{timeout_s}s"
+            ) from None
+        finally:
+            with self._lock:
+                self._out.pop(rid, None)
+                self._finished_at.pop(rid, None)
 
-    def import_kv_blocks(self, tokens: Sequence[int], kv, timeout_s: float = 30.0) -> int:
-        """KV-migration import mode (disaggregated serving)."""
-        raise NotImplementedError("import_kv_blocks " + _NOT_PORTED.format("KV migration"))
+    def _complete_prefill_export(self, req: Request, prompt) -> None:
+        """Step-thread half of :meth:`prefill_kv`: the gather runs here,
+        on the thread that owns the cache and writes it every step."""
+        self._consult_phase_chaos("export")
+        bs = self.blocks.block_size
+        n_full = len(prompt) // bs
+        try:
+            payload = None
+            if n_full > 0:
+                t0 = time.monotonic()
+                blocks = self.blocks.owned(req.request_id)[:n_full]
+                kv = self.runner.gather_blocks(blocks)
+                # ledger stage: device→host gather time of the exported
+                # blocks (the disagg handoff's engine-side cost)
+                req.ledger_stages["kv_export"] = time.monotonic() - t0
+                payload = {
+                    "tokens": list(prompt[: n_full * bs]),
+                    "kv": kv,
+                    "block_size": bs,
+                    "dtype": self.runner.kv_dtype,
+                }
+        except Exception as e:  # noqa: BLE001 — exporter must not hang
+            if self.scheduler.finish(req, FAILED):
+                req.state = FAILED
+                self._finish_request(
+                    req, FAILED,
+                    error=RequestFailedError(f"kv export failed: {e!r}"),
+                )
+            return
+        if payload is not None:
+            with self._lock:
+                q = self._out.get(req.request_id)
+            if q is not None:
+                q.put(("kv_export", payload))
+        if self.scheduler.finish(req, FINISHED):
+            self._finish_request(req, FINISHED, error=None)
 
+    def import_kv_blocks(
+        self, tokens: Sequence[int], kv, timeout_s: float = 30.0
+    ) -> int:
+        """Install migrated KV blocks into this engine's cache + radix
+        index (the import half of KV migration). ``kv`` is the
+        :meth:`prefill_kv` payload layout in this runner's host type;
+        block i must hold the K/V of ``tokens[i*bs:(i+1)*bs]``. Queued to
+        the STEP THREAD (the cache is the step thread's) and waited on
+        here. Returns the number of prompt tokens now covered by the
+        radix index — the immediately-following submit acquires them as
+        a prefix hit. Raises on block-pool exhaustion, a payload of
+        another element type, or a scatter failure (callers degrade to a
+        plain prefill)."""
+        bs = self.blocks.block_size
+        n = min(len(tokens) // bs, int(kv.shape[2]))
+        if n <= 0:
+            return 0
+        reply: "queue.Queue" = queue.Queue()
+        self._kv_imports.put((list(tokens[: n * bs]), kv[:, :, :n], reply))
+        self._work.set()
+        try:
+            ok, result = reply.get(timeout=timeout_s)
+        except queue.Empty:
+            raise TimeoutError(
+                f"kv import of {n} blocks not executed within {timeout_s}s"
+            ) from None
+        if not ok:
+            raise result
+        return result
+
+    def _drain_kv_imports(self) -> bool:
+        """Step-thread executor for queued KV imports. Each job:
+        reserve pinned blocks → device scatter → commit into the radix
+        index (redundant blocks freed). All-or-nothing per job; failures
+        surface to the waiting importer, never wedge the step loop."""
+        did = False
+        while True:
+            try:
+                tokens, kv, reply = self._kv_imports.get_nowait()
+            except queue.Empty:
+                return did
+            did = True
+            try:
+                self._consult_phase_chaos("import")
+                bs = self.blocks.block_size
+                n = len(tokens) // bs
+                blocks = self.blocks.reserve_import(n)
+                if blocks is None:
+                    reply.put((
+                        False,
+                        RequestFailedError(
+                            f"kv import: pool cannot cover {n} blocks"
+                        ),
+                    ))
+                    continue
+                try:
+                    # scatter_blocks packs each chunk into a fresh host
+                    # buffer and copies it to the device synchronously,
+                    # so the caller may unmap ``kv`` (shared memory) as
+                    # soon as the reply lands
+                    self.runner.scatter_blocks(blocks, kv)
+                except Exception as e:  # noqa: BLE001
+                    self.blocks.abort_import(blocks)
+                    reply.put((False, e))
+                    continue
+                self.blocks.commit_import(blocks, tokens)
+                # covered tokens, not blocks indexed: duplicates of
+                # already-indexed prefixes still serve acquire_prefix
+                reply.put((True, n * bs))
+            except Exception as e:  # noqa: BLE001
+                reply.put((False, e))
+
+    # -- cluster KV tier --------------------------------------------------
+    def _tier_spill(self, digest: bytes, blk: int, hits: int) -> bool:
+        """Spill half of the block manager's ONE spill-vs-drop policy
+        point — invoked under the manager lock at every indexed-block
+        eviction, so it only GATHERS here (one block, device→host) and
+        defers the heavy publish (shm write + daemon RPC) to
+        :meth:`_drain_tier_spills` on the next step. Popular blocks
+        (ever hit, or already tier-resident) spill; cold ones drop."""
+        digest_hex = digest.hex()
+        with self._tier_lock:
+            if digest_hex in self._tier_adverts or digest_hex in self._tier_pending:
+                return True  # already tier-resident/queued: content survives
+        if hits <= 0:
+            return False  # never reused since indexing: cold, drop
+        try:
+            kv = self.runner.gather_blocks([blk])
+        except Exception:  # noqa: BLE001 — a failed gather is a drop
+            return False
+        self._tier_spill_pending.append((digest, kv))
+        return True
+
+    def _drain_tier_spills(self) -> None:
+        if not self._tier_spill_pending:
+            return
+        pending, self._tier_spill_pending = self._tier_spill_pending, []
+        for digest, kv in pending:
+            self._tier_enqueue(digest, kv, "evict")
+
+    def _tier_enqueue(self, digest: bytes, kv, trigger: str) -> None:
+        """Hand one gathered block to the tier publisher thread. The
+        step thread only ever pays a lock + queue put here; the shm
+        write and daemon RPC happen off the token-emission path. A full
+        queue DROPS the write-back — tier warmth is best-effort and
+        must never backpressure decode."""
+        digest_hex = digest.hex()
+        with self._tier_lock:
+            if digest_hex in self._tier_adverts:
+                self._tier_adverts.move_to_end(digest_hex)
+                return
+            if digest_hex in self._tier_pending:
+                return
+            self._tier_pending.add(digest_hex)
+        try:
+            self._tier_pub_q.put_nowait((digest, kv, trigger))
+        except queue.Full:
+            with self._tier_lock:
+                self._tier_pending.discard(digest_hex)
+
+    def _tier_publish_loop(self) -> None:
+        while not self._stop.is_set():
+            try:
+                item = self._tier_pub_q.get(timeout=0.2)
+            except queue.Empty:
+                continue
+            self._tier_publish_one(*item)
+
+    def _tier_publish_one(self, digest: bytes, kv, trigger: str) -> None:
+        """Publish one queued block, best-effort, and retire its queue
+        entry (the publisher thread's unit of work, and the migrate
+        path's synchronous flush)."""
+        try:
+            self._tier_writeback(digest, kv, trigger)
+        except Exception:  # noqa: BLE001 — publish is best-effort
+            pass
+        finally:
+            with self._tier_lock:
+                self._tier_pending.discard(digest.hex())
+            self._tier_pub_q.task_done()
+
+    def _drain_tier_pub_queue_sync(self) -> None:
+        """Publish everything still queued on the CALLER's thread —
+        the migrate path needs residency guaranteed before it errors
+        the streams, so it cannot leave work racing its own exit."""
+        while True:
+            try:
+                item = self._tier_pub_q.get_nowait()
+            except queue.Empty:
+                return
+            self._tier_publish_one(*item)
+
+    def flush_tier_writebacks(self, timeout_s: float = 10.0) -> bool:
+        """Block until the deferred tier publisher is idle (queue empty
+        and no publish in flight). Tests and the migrate path use this
+        to turn the asynchronous write-back into a happens-before."""
+        deadline = time.monotonic() + timeout_s
+        while time.monotonic() < deadline:
+            with self._tier_lock:
+                idle = not self._tier_pending
+            if idle and self._tier_pub_q.unfinished_tasks == 0:
+                return True
+            time.sleep(0.01)
+        return False
+
+    def _tier_writeback(self, digest: bytes, kv, trigger: str) -> None:
+        """Publish one block payload into the tier + advert it. Dedup
+        by advert: a digest this replica already adverts just refreshes
+        recency. Runs on the tier publisher thread (or the step thread
+        for the synchronous migrate flush) — advert mutations take
+        _tier_lock, the publish RPC deliberately does not."""
+        from ray_tpu_torch.inference import kv_transfer
+
+        digest_hex = digest.hex()
+        with self._tier_lock:
+            if digest_hex in self._tier_adverts:
+                self._tier_adverts.move_to_end(digest_hex)
+                return
+        desc = kv_transfer.tier_publish(
+            digest, kv, self.blocks.block_size, ns=self._tier_ns
+        )
+        if desc is None:
+            return
+        with self._tier_lock:
+            self._tier_adverts[digest_hex] = desc
+            self._tier_adverts.move_to_end(digest_hex)
+            # advert cap: dropping the LRU advert retracts it from the
+            # gossip (routers purge on the next report's advert-set diff) —
+            # the daemon registry may keep the bytes until ITS ttl/cap
+            cap = max(1, GLOBAL_CONFIG.kv_tier_max_adverts)
+            while len(self._tier_adverts) > cap:
+                self._tier_adverts.popitem(last=False)
+        rpc_metrics.KV_TIER_PUBLISHES.inc(labels={"trigger": trigger})
+
+    def _tier_writeback_full_blocks(
+        self, req: Request, written, trigger: str, sync: bool = False
+    ) -> None:
+        """Write back every full block of ``written`` (token positions
+        whose K/V is in the cache) that is not yet tier-resident. The
+        per-block chain digests are recomputed from tokens — the same
+        capability-name derivation any future reader uses. Gathers run
+        HERE (the step thread); the publish defers to the tier publisher
+        thread unless ``sync`` (migrate needs residency-before-error)."""
+        bs = self.blocks.block_size
+        owned = self.blocks.owned(req.request_id)
+        n_full = min(len(written) // bs, len(owned))
+        prev = b""
+        for i in range(n_full):
+            prev = _chain_digest(prev, written[i * bs : (i + 1) * bs])
+            with self._tier_lock:
+                resident = (
+                    prev.hex() in self._tier_adverts
+                    or prev.hex() in self._tier_pending
+                )
+            if resident:
+                continue
+            try:
+                kv = self.runner.gather_blocks([owned[i]])
+            except Exception:  # noqa: BLE001 — write-back is best-effort
+                return
+            if sync:
+                self._tier_writeback(prev, kv, trigger)
+            else:
+                self._tier_enqueue(prev, kv, trigger)
+
+    def _migrate_inflight(self) -> None:
+        """Drain-with-migration: flush every in-flight request's written
+        KV — prompt AND generated — into the tier, then fail it with
+        :class:`KvMigrationHandoff` so the router resumes it on a
+        survivor that faults the KV back in. Publishes run synchronously
+        here: the handoff error must not reach the router before the
+        blocks are tier-resident, or the survivor's fault-in races our
+        exit."""
+        self._migrate_on_drain = False
+        self._drain_tier_pub_queue_sync()
+        self.flush_tier_writebacks(5.0)
+        for req in self.scheduler.take_all():
+            try:
+                # Only positions whose K/V truly reached the device
+                # cache: blocks are allocated for the WHOLE prompt at
+                # admission but chunked prefill writes incrementally —
+                # a mid-prefill request has written exactly
+                # effective_prompt[:prefill_pos], and decode has written
+                # through context_len-1 once prefill is done. Publishing
+                # past that point would advert never-written blocks
+                # under the VALID chain digest of the real tokens and
+                # poison every future fault-in of that prefix.
+                end = (
+                    (req.context_len - 1) if req.prefill_done else req.prefill_pos
+                )
+                if end > 0:
+                    written = (req.prompt + req.generated)[:end]
+                    self._tier_writeback_full_blocks(
+                        req, written, "migrate", sync=True
+                    )
+            except Exception:  # noqa: BLE001 — flush failure → plain replay
+                pass
+            self.blocks.free(req.request_id)
+            req.state = FAILED
+            self._finish_request(
+                req, FAILED, error=KvMigrationHandoff(KV_MIGRATION_MARKER)
+            )
 
     def _emit_token(self, req: Request, token: int) -> None:
         if req.finished:
@@ -1048,6 +1545,18 @@ class InferenceEngine:
             # FINISHED, double-counting requests_total
             return
         req.generated.append(token)
+        if self.engine_cfg.kv_tier_enabled:
+            # tier write-back trigger 2: each DECODE block boundary —
+            # position n_written-1's K/V was written by the step that
+            # sampled this token, so when n_written crosses a block
+            # boundary a new immutable full block exists. Flushing it
+            # now is what makes a mid-stream SIGKILL recoverable by
+            # fault-in: the generated prefix is already tier-resident.
+            n_written = len(req.prompt) + len(req.generated) - 1
+            if n_written > 0 and n_written % self.blocks.block_size == 0:
+                self._tier_writeback_full_blocks(
+                    req, (req.prompt + req.generated)[:n_written], "decode"
+                )
         now = time.monotonic()
         self._token_times.append(now)
         self.metrics["tokens_total"].inc()
@@ -1440,15 +1949,26 @@ class InferenceEngine:
         routers through the serve controller's long-poll channel
         (replica -> controller push -> router). Everything here must
         stay small and picklable — it travels on every routing-set
-        update. ``kv_tier`` holds no adverts: the tier is not ported
-        yet, and the reference reports ``{}`` with the tier off."""
+        update."""
+        if self.engine_cfg.kv_tier_enabled:
+            # snapshot under the tier lock: the step + publisher threads
+            # move_to_end/popitem concurrently
+            with self._tier_lock:
+                tier_adverts = dict(self._tier_adverts)
+        else:
+            tier_adverts = {}
         return {
             "queue_depth": self.scheduler.queue_depth(),
             "cache_util": round(self.blocks.utilization(), 4),
             "outstanding_tokens": self.scheduler.outstanding_tokens(),
             "block_size": self.blocks.block_size,
             "prefix_digest": self.blocks.prefix_digest(),
-            "kv_tier": {},
+            # tier adverts ride the same gossip beat: digest hex ->
+            # routable descriptor, bounded by kv_tier_max_adverts. A
+            # digest absent from a holder's NEXT report is thereby
+            # RETRACTED — routers diff per-actor advert sets and purge
+            # in one hop instead of waiting out a TTL.
+            "kv_tier": tier_adverts,
             "draining": self._draining,
             # queue-pressure export for the ingress tier: the admission
             # BOUND (so a proxy can judge fullness, not just depth) and

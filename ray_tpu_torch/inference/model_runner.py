@@ -83,6 +83,13 @@ class PagedModelRunner:
             )
         self.cache = init_paged_kv_cache(cfg, num_blocks, block_size, cache_dtype,
                                          device=self.device)
+        #: the cache's element type by name ("bfloat16", "float32", ...):
+        #: a KV payload names it, and an importer matches it
+        self.kv_dtype = str(self.cache["k"].dtype).removeprefix("torch.")
+        #: the numpy type :meth:`gather_blocks` returns and
+        #: :meth:`scatter_blocks` takes: bf16, which numpy lacks, as its
+        #: bits (``uint16``); one host type per cache type
+        self.kv_host_dtype = _to_numpy(self.cache["k"].new_zeros(0)).dtype
         self._seen_shapes: set = set()
         self._warmup_compiles: Optional[int] = None
 
@@ -152,9 +159,9 @@ class PagedModelRunner:
 
     def gather_blocks(self, block_ids: Sequence[int]) -> np.ndarray:
         """Whole cache blocks to the host: ``[2, n_layers, len(block_ids),
-        block_size, n_kv, head_dim]`` in the cache dtype (numpy; bf16 as
-        its bits, ``np.uint16``), in ``_KV_IO_WIDTH`` chunks padded with
-        the null block, padding rows sliced off."""
+        block_size, n_kv, head_dim]`` in :attr:`kv_host_dtype` (numpy;
+        bf16 as its bits, ``np.uint16``), in ``_KV_IO_WIDTH`` chunks
+        padded with the null block, padding rows sliced off."""
         outs = []
         for i in range(0, len(block_ids), _KV_IO_WIDTH):
             chunk = block_ids[i : i + _KV_IO_WIDTH]
@@ -170,7 +177,16 @@ class PagedModelRunner:
 
     def scatter_blocks(self, block_ids: Sequence[int], kv: np.ndarray) -> None:
         """Write blocks in the :meth:`gather_blocks` layout into this cache,
-        one row per id; short chunks pad with the null block."""
+        one row per id; short chunks pad with the null block. ``kv`` must
+        be in :attr:`kv_host_dtype`: a payload of another type (bf16 bits
+        for an f32 cache, f32 values for a bf16 one) raises instead of
+        being converted. Each chunk is packed into a fresh host buffer and
+        copied to the device before the next, so ``kv`` may be a view of
+        memory the caller unmaps as soon as this returns."""
+        if kv.dtype != self.kv_host_dtype:
+            raise TypeError(
+                f"KV payload of {kv.dtype} cannot be scattered into a {self.kv_dtype} "
+                f"cache (expects {self.kv_host_dtype})")
         for i in range(0, len(block_ids), _KV_IO_WIDTH):
             chunk = block_ids[i : i + _KV_IO_WIDTH]
             ids = np.zeros(_KV_IO_WIDTH, np.int64)
@@ -178,8 +194,7 @@ class PagedModelRunner:
             buf = np.zeros(kv.shape[:2] + (_KV_IO_WIDTH,) + kv.shape[3:], kv.dtype)
             buf[:, :, : len(chunk)] = kv[:, :, i : i + len(chunk)]
             self._seen_shapes.add(("s", _KV_IO_WIDTH))
-            scatter_paged_blocks(self.cache, self._dev(ids),
-                                 _from_numpy(buf, self.cache["k"].dtype).to(self.device))
+            scatter_paged_blocks(self.cache, self._dev(ids), _from_numpy(buf).to(self.device))
 
     def prefill_chunk(self, tokens: Sequence[int], block_row: Sequence[int],
                       ctx_len: int) -> np.ndarray:
@@ -248,7 +263,8 @@ def _to_numpy(t: torch.Tensor) -> np.ndarray:
     return t.cpu().numpy()
 
 
-def _from_numpy(a: np.ndarray, dtype: torch.dtype) -> torch.Tensor:
-    if dtype == torch.bfloat16 and a.dtype == np.uint16:
+def _from_numpy(a: np.ndarray) -> torch.Tensor:
+    """Inverse of :func:`_to_numpy`: ``uint16`` is bf16's bits."""
+    if a.dtype == np.uint16:
         return torch.from_numpy(a.view(np.int16)).view(torch.bfloat16)
-    return torch.from_numpy(a).to(dtype)
+    return torch.from_numpy(a)

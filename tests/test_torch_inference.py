@@ -477,11 +477,57 @@ def test_global_config_env_override(monkeypatch):
     "prefill_kv", "import_kv_blocks", "attach_node_drain_listener",
 ])
 def test_unported_features_raise(cfg, params, feature, monkeypatch):
-    """What is not ported raises naming the ROADMAP; replica chaos and the
-    node drain listener are ported and no longer raise."""
-    if feature in ("kv_transfer_enabled", "kv_tier_enabled"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            InferenceEngine(cfg, params, engine_config(**{feature: True}))
+    """The features this test once held to raising naming the ROADMAP are
+    ported, and each runs: KV migration (the gather/scatter shapes at
+    warmup, ``prefill_kv``, ``import_kv_blocks``), the cluster KV tier
+    (write-back adverts, ``begin_drain(migrate=True)``), replica chaos and
+    the node drain listener."""
+    from ray_tpu_torch.inference import kv_transfer
+    from ray_tpu_torch.inference.engine import KvMigrationHandoff
+
+    prompt = [3, 1, 4, 1, 5, 9, 2, 6, 5, 3, 5, 8, 9, 7, 9, 3, 2, 3, 8, 4]  # 2 blocks + 4
+    if feature == "kv_transfer_enabled":
+        plain = InferenceEngine(cfg, params, engine_config(warmup=True))
+        eng = InferenceEngine(cfg, params, engine_config(warmup=True, kv_transfer_enabled=True))
+        # the gather and scatter shapes run at warmup, so a migration
+        # meets no new shape
+        assert eng.runner.compile_count() == plain.runner.compile_count() + 2
+        eng.start()
+        try:
+            assert eng.prefill_kv(prompt)["kv"].shape[2] == 2
+            assert eng.import_kv_blocks(prompt[:16], eng.prefill_kv(prompt)["kv"]) == 16
+        finally:
+            eng.stop()
+        assert eng.runner.recompiles_after_warmup() == 0
+        return
+    if feature in ("kv_tier_enabled", "migrate"):
+        eng = InferenceEngine(cfg, params, engine_config(
+            kv_transfer_enabled=True, kv_tier_enabled=True, max_new_tokens_default=20)).start()
+        try:
+            assert eng._tier_ns
+            if feature == "kv_tier_enabled":
+                # the prompt's two full blocks are written back and adverted
+                list(eng.generate(prompt, max_new_tokens=2))
+                assert eng.flush_tier_writebacks()
+                assert len(eng.routing_stats()["kv_tier"]) == 2
+                return
+            # a stall at every step keeps the stream live for the drain
+            from ray_tpu_torch.util.chaos import ReplicaFaultPlan
+
+            eng.testing_fault_plan = ReplicaFaultPlan("stall:1.0:0.1:9999", 1)
+            rid = eng.submit(prompt, max_new_tokens=20)
+            it = eng.tokens(rid, timeout=60)
+            first = next(it)
+            eng.begin_drain(migrate=True)
+            with pytest.raises(KvMigrationHandoff):
+                list(it)
+            assert isinstance(first, int) and eng.draining
+            assert len(eng.routing_stats()["kv_tier"]) >= 2
+            assert eng.blocks.used_blocks == 0
+        finally:
+            eng.stop()
+            with kv_transfer._LOCAL_TIER_LOCK:
+                kv_transfer._LOCAL_TIER.clear()
         return
     if feature == "testing_replica_chaos":
         # the engine builds with the flag set, and the plan is consulted
@@ -498,7 +544,7 @@ def test_unported_features_raise(cfg, params, feature, monkeypatch):
         plan = port_engine.active_replica_fault_plan()
         assert plan.seed == 11 and plan.injections == 2 and plan.consults >= 4
         return
-    eng = InferenceEngine(cfg, params, engine_config())
+    eng = InferenceEngine(cfg, params, engine_config(kv_transfer_enabled=True))
     if feature == "attach_node_drain_listener":
         # no cluster: the reference's local-mode branch, explicit drain only
         assert eng.attach_node_drain_listener() is None
@@ -510,13 +556,21 @@ def test_unported_features_raise(cfg, params, feature, monkeypatch):
             eng.submit([1, 2, 3])
         eng.detach_node_drain_listener()
         return
-    call = {
-        "migrate": lambda: eng.begin_drain(migrate=True),
-        "prefill_kv": lambda: eng.prefill_kv([1, 2, 3]),
-        "import_kv_blocks": lambda: eng.import_kv_blocks([1, 2], np.zeros(1)),
-    }[feature]
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        call()
+    src = InferenceEngine(cfg, params, engine_config(kv_transfer_enabled=True)).start()
+    eng.start()
+    try:
+        payload = src.prefill_kv(prompt)
+        assert payload["tokens"] == prompt[:16] and payload["block_size"] == 8
+        assert payload["dtype"] == "float32" and payload["kv"].shape == (2, 2, 2, 8, 2, 16)
+        assert src.blocks.used_blocks == 0  # no token sampled, blocks back
+        if feature == "import_kv_blocks":
+            want = list(src.generate(prompt, max_new_tokens=6))
+            assert eng.import_kv_blocks(payload["tokens"], payload["kv"]) == 16
+            assert list(eng.generate(prompt, max_new_tokens=6)) == want
+            assert eng.blocks.prefix_tokens_saved_total == 16
+    finally:
+        src.stop()
+        eng.stop()
     assert not eng.draining
 
 

@@ -348,17 +348,36 @@ def test_node_drain_drains_the_replica_engine(cluster, cfg):
 
 
 def test_deployment_surface(cluster, cfg):
-    """``serve.llm_deployment`` is the port's; the tier and disaggregated
-    pools raise naming the ROADMAP item, and the split pools' options are
-    not taken; a replica with no device named serves on ``cuda``, whether
-    it builds its params or is given host ones, and raises without a card,
-    with no CPU fallback."""
+    """``serve.llm_deployment`` is the port's; ``kv_tier=True`` forces the
+    tier and migration on in the bound engine config, and
+    ``disaggregated=True`` takes the split pools' options (replica counts,
+    the prefill pool's autoscaling and actor options, the pairing) and
+    passes the bind's ``device=``/``params=`` to both pools; a replica with
+    no device named serves on ``cuda``, whether it builds its params or is
+    given host ones, and raises without a card, with no CPU fallback."""
     assert serve.llm_deployment is llm_deployment and serve.LLMServer is LLMServer
-    for kw in ({"kv_tier": True}, {"disaggregated": True}):
-        with pytest.raises(NotImplementedError, match="ROADMAP Queue A: item 4"):
-            llm_deployment(cfg, **kw)
-    with pytest.raises(TypeError, match="prefill_replicas"):
-        llm_deployment(cfg, prefill_replicas=2)
+    tier = llm_deployment(cfg, engine=EngineConfig(warmup=False), kv_tier=True).bind(device="cpu")
+    assert tier.args[0] is cfg and tier.kwargs == {"seed": 0, "device": "cpu"}
+    assert tier.args[1].kv_tier_enabled and tier.args[1].kv_transfer_enabled
+    assert not tier.args[1].warmup
+    scaling = serve.AutoscalingConfig(min_replicas=1, max_replicas=3)
+    host = init_params(cfg, 0, device="cpu")
+    app = llm_deployment(
+        cfg, name="split", prefill_replicas=2, decode_replicas=3, seed=4,
+        prefill_autoscaling_config=scaling, prefill_actor_options={"num_cpus": 0.5},
+        ray_actor_options={"num_cpus": 0.25}, disaggregated=True,
+    ).bind(device="cpu", params=host)
+    assert isinstance(app, serve.DisaggApplication)
+    pre = app.prefill_app
+    dcfg, pcfg = app.deployment.config, pre.deployment.config
+    assert (app.deployment.name, pre.deployment.name) == ("split", "split-prefill")
+    assert dcfg.num_replicas == 3 and dcfg.disagg_prefill == "split-prefill"
+    assert dcfg.ray_actor_options == {"num_cpus": 0.25} and dcfg.route_prefix == "/llm"
+    assert pcfg.num_replicas == 2 and pcfg.autoscaling is scaling
+    assert pcfg.ray_actor_options == {"num_cpus": 0.5} and pcfg.route_prefix is None
+    for a in (app, pre):
+        assert a.kwargs == {"seed": 4, "device": "cpu", "params": host}
+        assert a.args[1].kv_transfer_enabled and not a.args[1].kv_tier_enabled
     if torch.cuda.is_available():
         pytest.skip("a card is present: the replica would build on it")
     replicas = [

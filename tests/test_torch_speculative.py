@@ -3,9 +3,10 @@
 with its byte-exact cases held within the port (speculative output ==
 plain output, for greedy and seeded temperature > 0).
 
-``test_rollback_never_pollutes_prefix_index`` keeps the prefix-index half
-of the reference's ``test_rollback_never_pollutes_prefix_index_or_tier``;
-the KV-tier half waits for the tier (not ported yet).
+``test_rollback_never_pollutes_prefix_index`` holds the prefix index alone
+on a plain engine, and ``test_rollback_never_pollutes_prefix_index_or_tier``
+(the reference's case) the index and the cluster KV tier's adverts on a
+tier engine.
 """
 
 import pytest
@@ -164,24 +165,26 @@ def test_per_request_off_switch(cfg, params):
 # isolation: rejected positions never escape the verified cursor
 
 
+class _Garbage:
+    """An always-wrong proposer: every verify step writes a rejected tail
+    into the paged cache, every step rolls back."""
+
+    def propose(self, ctx, k, request_id=""):
+        return [255] * k
+
+    def release(self, request_id):
+        pass
+
+    def compile_count(self):
+        return 0
+
+    def recompiles_after_warmup(self):
+        return 0
+
+
 def test_rollback_never_pollutes_prefix_index(cfg, params):
     eng = InferenceEngine(cfg, params, _ec(speculative_k=4, speculative_adaptive=False)).start()
     try:
-        # an always-wrong proposer: every verify step writes a rejected
-        # tail into the paged cache, every step rolls back
-        class _Garbage:
-            def propose(self, ctx, k, request_id=""):
-                return [255] * k
-
-            def release(self, request_id):
-                pass
-
-            def compile_count(self):
-                return 0
-
-            def recompiles_after_warmup(self):
-                return 0
-
         eng.spec = _Garbage()
         out = list(eng.generate(PROMPT, max_new_tokens=20, temperature=0.0))
         st = eng.stats()
@@ -199,6 +202,41 @@ def test_rollback_never_pollutes_prefix_index(cfg, params):
         assert bs["prefix_cached_blocks"] == n_full_verified
     finally:
         eng.stop()
+    ref, _ = _run(cfg, params, _ec())
+    assert out == ref
+
+
+def test_rollback_never_pollutes_prefix_index_or_tier(cfg, params):
+    """With the KV tier on, every tier advert (prefill and decode-boundary
+    write-backs) and every indexed digest keys verified tokens only: the
+    rejected drafts' positions never reach either."""
+    from ray_tpu_torch.inference import kv_transfer
+
+    eng = InferenceEngine(cfg, params, _ec(
+        speculative_k=4, kv_transfer_enabled=True, kv_tier_enabled=True,
+        speculative_adaptive=False)).start()
+    try:
+        eng.spec = _Garbage()
+        out = list(eng.generate(PROMPT, max_new_tokens=20, temperature=0.0))
+        st = eng.stats()
+        assert st["speculative"]["rollbacks"] > 0
+        assert eng.flush_tier_writebacks()
+        verified = set(d.hex() for d in _digests(PROMPT + out))
+        adverts = set(eng._tier_adverts)
+        # the written prefix's full blocks are all adverted, nothing else
+        n_full_verified = (len(PROMPT) + len(out) - 1) // 8
+        assert adverts <= verified and len(adverts) == n_full_verified
+        assert st["speculative"]["proposed_tokens"] > 0
+        with eng.blocks._lock:
+            indexed = set(d.hex() for d in eng.blocks._index)
+        assert indexed <= verified
+        bs = eng.blocks.stats()
+        assert bs["holders"] == 0 and bs["used_blocks"] == 0
+        assert bs["prefix_cached_blocks"] == n_full_verified
+    finally:
+        eng.stop()
+        with kv_transfer._LOCAL_TIER_LOCK:
+            kv_transfer._LOCAL_TIER.clear()
     ref, _ = _run(cfg, params, _ec())
     assert out == ref
 

@@ -391,7 +391,8 @@ def test_server_matches_jax_server():
 
 
 def test_server_surface(cfg, params):
-    """Construction, the hooks carried over, and what is not ported."""
+    """Construction, the hooks carried over, and the KV-migration entry
+    points on a plain engine."""
     if torch.cuda.is_available():
         pytest.skip("a card is present: LLMServer() would build on it")
     with pytest.raises(RuntimeError, match="no CUDA device"):
@@ -417,12 +418,22 @@ def test_server_surface(cfg, params):
         assert server.routing_stats()["kv_tier"] == {}
         rid = server.engine.submit([1, 2, 3], max_new_tokens=8)
         server.cancel(rid)
-        with pytest.raises(NotImplementedError, match="ROADMAP Queue A"):
-            server.prefill_export({"prompt": [1, 2, 3]})
-        with pytest.raises(NotImplementedError, match="ROADMAP Queue A"):
-            server.testing_arm_kv_tier_chaos("missing_block:1.0", 1)
-        with pytest.raises(NotImplementedError, match="ROADMAP Queue A"):
-            server.begin_drain(migrate=True)
+        # KV migration on a plain engine: a prompt within one block has
+        # nothing to export, a longer one exports its full blocks
+        assert server.prefill_export({"prompt": [1, 2, 3]}) is None
+        desc = server.prefill_export({"prompt": list(range(1, 21))})
+        assert desc["tokens"] == 16 and desc["dtype"] == "float32"
+        assert desc["shape"][2] == 16 // ENGINE["block_size"]
+        from ray_tpu_torch.inference import kv_transfer
+
+        try:
+            assert server.testing_arm_kv_tier_chaos("missing_block:1.0", 1) == 1
+            assert kv_transfer.testing_tier_plan.seed == 1
+        finally:
+            kv_transfer.testing_tier_plan = None
+        # without the tier, migrate=True is a plain drain (the reference's)
+        server.begin_drain(grace_s=5.0, migrate=True)
+        assert server.engine.draining and not server.engine._migrate_on_drain
         with pytest.raises(ValueError):
             server({"tokens": [1]})
         server.begin_drain(grace_s=5.0)
