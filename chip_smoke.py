@@ -166,6 +166,33 @@ JSON line on stdout:
    blocks must reach the tier, the controller reaps the replica, the
    deployment scales back to 1, and both streams finish on the new
    replica equal to the undisturbed ones, the decoding one by fault-in.
+11. train (the earlier phases' engines freed first): the training path as
+   a user reaches it, on a fresh cluster of the port's. (a) tiny Llama in
+   f32 with TF32 off through ``TorchTrainer`` (one GPU worker,
+   ``TorchBackendConfig(mesh_spec=MeshSpec(fsdp=-1), sharding="fsdp")``,
+   ``tools/train_llama.py``'s loop: ``init_sharded``, the rule-constrained
+   step with ``remat="selective"``, seeded numpy tokens through
+   ``get_dataset_shard("train").iter_device_batches``), 8 steps with a
+   checkpoint of model and optimizer state every 2 (``num_to_keep=2``),
+   the worker dying before step 5 on its first attempt and the gang
+   restarted (``max_failures=1``): the 8 losses must equal the same step
+   run uninterrupted in this process on a world-1 nccl mesh within 1e-6
+   relative, two checkpoints must be kept, and the worker must see one
+   GPU (its leased ``CUDA_VISIBLE_DEVICES``) and an nccl group; (b) phase
+   ``slice``'s config, params and batch through the trainer (nccl world
+   1, fsdp rules, selective remat), 1 warm and 3 timed steps: the loss
+   finite and falling, each of the 4 losses within 2^-8 of phase
+   ``slice``'s on the same batch (the last three follow updates),
+   and inside the worker each kernel launched n_layers x 4 times, all on
+   the tensor cores; it prints step ms, tokens/s and the worker's peak
+   memory beside phase ``slice``'s step ms; (c) phase ``slice``'s step in
+   this process under ``remat=False``, ``"selective"`` and ``"full"``, 2
+   steps each: the forward kernel launched n_layers, n_layers and 2 x
+   n_layers times a step, dq and dk/dv n_layers times, both steps'
+   losses equal within 2^-8 across modes (the second follows an update,
+   so it holds each mode's backward); it prints each mode's step ms and
+   peak memory.
+   Then the script's total seconds.
 
 Then the ``kernels`` summary line, the ``nvidia-smi`` line, and last the
 ``{"ok": true, "device": ...}`` line. Any failed check raises: the script
@@ -182,6 +209,8 @@ import subprocess
 import sys
 import time
 from pathlib import Path
+
+T_IMPORT = time.perf_counter()
 
 #: peak rates of one H100 SXM (NVIDIA data sheet; dense tensor-core bf16,
 #: CUDA-core f32, HBM3)
@@ -397,7 +426,7 @@ def phase_slice(torch, A, L, smi: str):
           "losses": losses, "step_ms": 1e3 * step_s, "tokens_per_s": batch * seq / step_s,
           "max_memory_allocated_bytes": torch.cuda.max_memory_allocated(),
           "launches": launches, "launches_by_route": routes, "nvidia_smi": smi})
-    return launches, routes
+    return launches, routes, {"losses": losses, "step_ms": 1e3 * step_s}
 
 
 # ---------------------------------------------------------------------------
@@ -2379,6 +2408,223 @@ def phase_kv_migration(torch, A, L, smi: str, sd_gap_s):
     check(not left, f"no process of the cluster survives shutdown: {left}")
 
 
+# ---------------------------------------------------------------------------
+# 11. train
+
+
+#: (a) the resumed f32 run: tiny Llama, steps, rows a step, a checkpoint
+#: every TRAIN_A_EVERY steps, the worker dying before TRAIN_A_FAIL once
+TRAIN_A_STEPS, TRAIN_A_ROWS, TRAIN_A_SEQ, TRAIN_A_EVERY, TRAIN_A_FAIL = 8, 4, 64, 2, 5
+#: bf16 tolerance of a loss against another path's (relative, 2^-8)
+BF16_LOSS_RTOL = 2.0 ** -8
+
+
+def train_fit(loop_config, rows, name, storage, **run):
+    """One ``TorchTrainer`` fit of ``llama_train_loop`` on one GPU worker
+    (nccl world 1, ``MeshSpec(fsdp=-1)``, fsdp rules) over ``rows``."""
+    import ray_tpu_torch.data as rd
+    from ray_tpu_torch.parallel.mesh import MeshSpec
+    from ray_tpu_torch.tools.train_llama import llama_train_loop
+    from ray_tpu_torch.train import RunConfig, ScalingConfig, TorchBackendConfig, TorchTrainer
+
+    trainer = TorchTrainer(
+        llama_train_loop, train_loop_config=loop_config,
+        scaling_config=ScalingConfig(num_workers=1, use_gpu=True),
+        backend_config=TorchBackendConfig(mesh_spec=MeshSpec(fsdp=-1), sharding="fsdp"),
+        run_config=RunConfig(name=name, storage_path=storage, **run),
+        datasets={"train": rd.from_numpy(rows, block_size=loop_config["batch_size"])})
+    return trainer.fit()
+
+
+def train_worker_checks(done, what):
+    check(done.get("done") is True, f"{what}: the worker's last report: {done}")
+    check(done["device_count"] == 1 and done["cuda_visible_devices"] not in (None, ""),
+          f"{what}: the worker sees one GPU it was leased: {done}")
+    check(done["backend"] == "nccl" and done["world_size"] == 1,
+          f"{what}: the worker's process group is nccl, world 1: {done}")
+
+
+def train_resume_f32(torch, L, smi, storage):
+    """(a) tiny f32 through the trainer, the worker killed before step 5 on
+    its first attempt and resumed from a checkpoint, against the same step
+    run uninterrupted in this process."""
+    import numpy as np
+
+    from ray_tpu_torch.parallel.mesh import MeshSpec, make_mesh
+    from ray_tpu_torch.parallel.sharding import fsdp_rules
+    from ray_tpu_torch.train import CheckpointConfig, FailureConfig
+
+    rows = np.random.RandomState(10).randint(
+        0, 256, size=(TRAIN_A_STEPS * TRAIN_A_ROWS, TRAIN_A_SEQ + 1))
+    loop = {"model": {"preset": "tiny", "dtype": "float32"}, "seed": 0, "lr": 1e-3,
+            "remat": "selective", "batch_size": TRAIN_A_ROWS,
+            "checkpoint_every": TRAIN_A_EVERY, "fail_at_step": TRAIN_A_FAIL}
+    t0 = time.perf_counter()
+    result = train_fit(loop, rows, "train_a", storage,
+                       checkpoint_config=CheckpointConfig(num_to_keep=2),
+                       failure_config=FailureConfig(max_failures=1))
+    fit_s = time.perf_counter() - t0
+    done = result.metrics
+    final = result.checkpoint.to_dict()
+    kept = sorted(p.name for p in Path(result.path).glob("checkpoint_*"))
+    # uninterrupted, in this process: the same call on a world-1 nccl mesh
+    cfg = L.LlamaConfig.tiny(dtype=torch.float32)
+    mesh, rules = make_mesh(MeshSpec(fsdp=-1)), fsdp_rules()
+    state = L.init_sharded(cfg, mesh, rules, 0, L.adamw(1e-3))
+    step = L.make_train_step(cfg, remat="selective", mesh=mesh, rules=rules)
+    ref = []
+    for i in range(TRAIN_A_STEPS):
+        r = torch.from_numpy(rows[i * TRAIN_A_ROWS:(i + 1) * TRAIN_A_ROWS]).cuda()
+        state, loss = step(state, {"tokens": r[:, :-1], "targets": r[:, 1:]})
+        ref.append(float(loss))
+    losses = final["losses"]
+    rel = max(abs(a - b) / abs(b) for a, b in zip(losses, ref))
+    history = [m["step"] for m in result.metrics_history if "loss" in m]
+    emit({"phase": "train", "part": "a_resume_f32", "config": "LlamaConfig.tiny f32, TF32 off",
+          "steps": TRAIN_A_STEPS, "rows_per_step": TRAIN_A_ROWS, "seq": TRAIN_A_SEQ,
+          "fail_before_step": TRAIN_A_FAIL, "resumed_history_steps": history,
+          "losses": losses, "uninterrupted_losses": ref, "max_rel_diff": rel,
+          "checkpoints_kept": kept, "worker": done, "fit_s": fit_s, "nvidia_smi": smi})
+    check(len(losses) == TRAIN_A_STEPS and rel <= 1e-6,
+          f"resumed losses equal the uninterrupted run within 1e-6: {rel}")
+    check(history == list(range(TRAIN_A_FAIL - 1, TRAIN_A_STEPS)),
+          f"the second attempt resumed from the step-{TRAIN_A_FAIL - 1} checkpoint: {history}")
+    check(len(kept) == 2 and final["step"] == TRAIN_A_STEPS, f"two checkpoints kept: {kept}")
+    train_worker_checks(done, "train (a)")
+
+
+def train_7b(torch, L, smi, storage, slice_summary):
+    """(b) the slice's config, params and batch through the trainer: one
+    warm and 3 timed steps of the sharded step with selective remat."""
+    import numpy as np
+
+    from ray_tpu_torch.tools.profile_train_step import SLICE
+
+    n_layers, steps = SLICE["n_layers"], 4
+    g = torch.Generator(device="cuda").manual_seed(3)  # train_slice(seed=0)'s batch
+    seqs = torch.randint(0, 32000, (SLICE["batch"], SLICE["seq"] + 1), generator=g,
+                         device="cuda").cpu().numpy()
+    loop = {"model": {"preset": "llama2_7b", "n_layers": n_layers}, "seed": 0,
+            "lr": SLICE["lr"], "remat": "selective", "batch_size": SLICE["batch"]}
+    t0 = time.perf_counter()
+    result = train_fit(loop, np.concatenate([seqs] * steps), "train_b", storage)
+    fit_s = time.perf_counter() - t0
+    done = result.metrics
+    hist = [m for m in result.metrics_history if "loss" in m]
+    losses = [m["loss"] for m in hist]
+    step_ms = sum(m["step_ms"] for m in hist[1:]) / (steps - 1)
+    tokens = SLICE["batch"] * SLICE["seq"]
+    ref = slice_summary["losses"]  # the same params and batch, every step
+    rel = max(abs(a - b) / abs(b) for a, b in zip(losses, ref))
+    want = n_layers * steps
+    emit({"phase": "train", "part": "b_7b_bf16",
+          "config": f"LlamaConfig.llama2_7b(n_layers={n_layers}) bf16",
+          "reduced": [f"n_layers 32 -> {n_layers}"], "batch": SLICE["batch"], "seq": SLICE["seq"],
+          "mesh": done.get("mesh"), "sharding": "fsdp", "remat": "selective",
+          "losses": losses, "slice_losses": ref, "max_rel_diff_vs_slice": rel,
+          "step_ms": step_ms, "step_ms_each": [m["step_ms"] for m in hist],
+          "tokens_per_s": tokens / (step_ms / 1e3),
+          "slice_step_ms": slice_summary["step_ms"],
+          "trainer_over_slice": step_ms / slice_summary["step_ms"],
+          "worker_max_memory_allocated_bytes": done.get("max_memory_allocated_bytes"),
+          "worker_launches": done.get("launches"),
+          "worker_launches_by_route": done.get("launches_by_route"),
+          "fit_s": fit_s, "nvidia_smi": smi})
+    check(len(losses) == steps and all(math.isfinite(x) for x in losses), f"losses: {losses}")
+    check(losses[-1] < losses[0], f"loss falls: {losses}")
+    check(len(ref) == steps and rel <= BF16_LOSS_RTOL,
+          f"losses {losses} vs the slice's {ref}: largest relative difference {rel}")
+    train_worker_checks(done, "train (b)")
+    for name, n in done["launches"].items():
+        check(n == want, f"worker {name} launched {n} times, expected {want}")
+        check(done["launches_by_route"][name] == {"tensor_core": want, "cuda_core": 0},
+              f"worker {name} by route {done['launches_by_route'][name]}")
+
+
+def train_remat_modes(torch, A, L, smi):
+    """(c) the slice's step in this process under each remat mode, 2 steps
+    each from the same params and batch."""
+    from ray_tpu_torch.tools.profile_train_step import SLICE, train_slice
+
+    n_layers, steps = SLICE["n_layers"], 2
+    rows = {}
+    for mode in (False, "selective", "full"):
+        cfg, (model, opt), _, batch = train_slice(seed=0)
+        step = L.make_train_step(cfg, remat=mode)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        A.reset_launch_counts()  # this mode's steps start here
+        losses, ms = [], []
+        state = (model, opt)
+        for _ in range(steps):
+            t0 = time.perf_counter()
+            state, loss = step(state, batch)
+            losses.append(float(loss))
+            torch.cuda.synchronize()
+            ms.append(1e3 * (time.perf_counter() - t0))
+        launches = {fn.__name__: fn.launches for fn in A.KERNELS}  # read just after
+        rows[str(mode)] = {"losses": losses, "step_ms": ms,
+                           "max_memory_allocated_bytes": torch.cuda.max_memory_allocated(),
+                           "launches": launches}
+        del state, model, opt, step
+        gc_collect(torch)
+    emit({"phase": "train", "part": "c_remat_modes",
+          "config": f"LlamaConfig.llama2_7b(n_layers={n_layers}) bf16, unsharded",
+          "batch": SLICE["batch"], "seq": SLICE["seq"], "modes": rows, "nvidia_smi": smi})
+    fwd = {"False": n_layers, "selective": n_layers, "full": 2 * n_layers}
+    for mode, r in rows.items():
+        got = r["launches"]
+        check(got["flash_fwd"] == fwd[mode] * steps,
+              f"remat={mode}: forward launched {got['flash_fwd']}, expected {fwd[mode] * steps}")
+        check(got["flash_bwd_dq"] == got["flash_bwd_dkv"] == n_layers * steps,
+              f"remat={mode}: backward launches {got}")
+        # step 1 follows an update, so it holds the backward and AdamW too
+        ref = rows["False"]["losses"]
+        rel = max(abs(a - b) / abs(b) for a, b in zip(r["losses"], ref))
+        check(rel <= BF16_LOSS_RTOL, f"remat={mode}: losses {r['losses']} vs {ref}: {rel}")
+
+
+def gc_collect(torch):
+    import gc
+
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def phase_train(torch, A, L, smi: str, slice_summary: dict):
+    """The training path through the trainer: (a) a resumed f32 run, (b)
+    the slice at 7B width through ``TorchTrainer``, (c) remat modes."""
+    import os
+    import tempfile
+
+    import torch.distributed as dist
+
+    import ray_tpu_torch as rt
+    from ray_tpu_torch.util.reaper import find_runtime_pids
+
+    gc_collect(torch)  # the earlier phases' engines and caches are gone
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="train_runs_") as storage:
+        try:
+            rt.init(num_cpus=4)
+            train_resume_f32(torch, L, smi, storage)
+            gc_collect(torch)
+            train_7b(torch, L, smi, storage, slice_summary)
+        finally:
+            rt.shutdown()
+            if dist.is_initialized():
+                dist.destroy_process_group()
+    gc_collect(torch)
+    train_remat_modes(torch, A, L, smi)
+    deadline = time.monotonic() + 15
+    while find_runtime_pids(spawner_pid=os.getpid()) and time.monotonic() < deadline:
+        time.sleep(0.1)
+    left = find_runtime_pids(spawner_pid=os.getpid())
+    emit({"phase": "train", "part": "end", "left_after": left,
+          "seconds": time.perf_counter() - t_phase})
+    check(not left, f"no process of the cluster survives shutdown: {left}")
+
+
 def main() -> int:
     import torch
 
@@ -2401,12 +2647,16 @@ def main() -> int:
     errs = phase_parity(K, A)
     phase_reference(K, L)
     times = phase_times(torch, K, A)
-    launches, routes = phase_slice(torch, A, L, smi)
+    t_start = time.perf_counter()
+    launches, routes, slice_summary = phase_slice(torch, A, L, smi)
     serve_summary = phase_serve(torch, A, L, smi)
     phase_serve_llm(torch, A, L, smi)
     phase_runtime(torch, K, L, smi, serve_summary)
     sd_gap_s = phase_serve_deployment(torch, A, L, smi, serve_summary)
     phase_kv_migration(torch, A, L, smi, sd_gap_s)
+    phase_train(torch, A, L, smi, slice_summary)
+    emit({"phase": "total", "seconds_from_slice": time.perf_counter() - t_start,
+          "seconds": time.perf_counter() - T_IMPORT})
     emit({"kernels": [
         {"name": k, "route": "cuda", "source": SOURCES[k],
          "replaces": TPU_KERNELS[k][1], "replaces_fn": TPU_KERNELS[k][0],

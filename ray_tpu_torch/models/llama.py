@@ -11,8 +11,15 @@ step and the paged-KV serving steps.
 * matmuls in the param dtype, logits and loss in f32;
 * the paged-KV prefill, verify and decode steps the inference engine runs
   (plain torch ops over a block-paged cache updated in place);
-* single device. Selective remat, MoE, sequence-parallel attention and
-  sharding are not ported yet and raise ``NotImplementedError``.
+* every parameter has *logical* axis names (``logical_axes``); with a
+  ``DeviceMesh`` and a ``ShardingRules`` table
+  (``ray_tpu_torch.parallel``) the params become DTensors
+  (``init_sharded``) and ``forward``/``make_train_step`` pin activations,
+  grads and optimizer state to the table, as the JAX step pins them;
+* ``remat="selective"`` saves the matmul outputs and the flash output and
+  recomputes the elementwise tail (the JAX ``_remat_policy``). MoE and
+  sequence-parallel attention are not ported yet and raise
+  ``NotImplementedError``.
 
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``.
 """
@@ -28,9 +35,23 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
-from torch.utils.checkpoint import checkpoint
+from torch.utils.checkpoint import (
+    CheckpointPolicy,
+    checkpoint,
+    create_selective_checkpoint_contexts,
+)
 
 from ray_tpu_torch.ops.attention import flash_attention
+from ray_tpu_torch.parallel.mesh import placement_mesh
+from ray_tpu_torch.parallel.sharding import (
+    constrain,
+    constrain_tree,
+    match_partition_rules,
+    optimizer_state,
+    spec_placements,
+    tree_leaves,
+    tree_path_names,
+)
 
 
 @dataclass(frozen=True)
@@ -88,24 +109,15 @@ def resolve_device(device=None) -> torch.device:
     return dev
 
 
-def _check_ported(cfg: LlamaConfig, remat=False, mesh=None, rules=None) -> None:
+def _check_ported(cfg: LlamaConfig, remat=False) -> None:
     if cfg.moe_experts > 0:
-        raise NotImplementedError("MoE FFNs are not ported yet (ROADMAP Queue A: MoE)")
+        raise NotImplementedError("MoE FFNs are not ported yet (ROADMAP Queue A 6: MoE)")
     if cfg.attention_impl in ("ring", "ulysses"):
         raise NotImplementedError(
             f"attention_impl={cfg.attention_impl!r} is not ported yet "
-            "(ROADMAP Queue A: sequence parallelism)"
+            "(ROADMAP Queue A 7: sequence parallelism)"
         )
-    if mesh is not None or rules is not None:
-        raise NotImplementedError(
-            "mesh/rules sharding is not ported yet (ROADMAP Queue A: multi-device)"
-        )
-    if remat == "selective":
-        raise NotImplementedError(
-            "remat='selective' is not ported yet (ROADMAP Queue A: selective remat)"
-        )
-    if remat not in (False, None, True, "full"):
-        raise ValueError(f"remat must be False, True, 'full', or 'selective'; got {remat!r}")
+    _remat_policy(remat)
 
 
 # ---------------------------------------------------------------------------
@@ -209,6 +221,108 @@ def init_params(cfg: LlamaConfig, seed=0, *, device=None) -> Llama:
     return model
 
 
+def logical_axes(cfg: LlamaConfig) -> Dict[str, Any]:
+    """Tree (same structure as the JAX params) of logical-axis-name tuples."""
+    _check_ported(cfg)
+    layer = {
+        "attn_norm": (None,),
+        "wq": ("embed", "heads", "head_dim"),
+        "wk": ("embed", "kv_heads", "head_dim"),
+        "wv": ("embed", "kv_heads", "head_dim"),
+        "wo": ("heads", "head_dim", "embed"),
+        "mlp_norm": (None,),
+        "w_gate": ("embed", "mlp"),
+        "w_up": ("embed", "mlp"),
+        "w_down": ("mlp", "embed"),
+    }
+    return {
+        "embed": ("vocab", "embed"),
+        "layers": [dict(layer) for _ in range(cfg.n_layers)],
+        "final_norm": (None,),
+        "lm_head": ("embed", "vocab"),
+    }
+
+
+def partition_rules(cfg: LlamaConfig, rules) -> list:
+    """Ordered ``(regex, PartitionSpec)`` pairs covering every llama param —
+    the regex-rule source of truth ``match_partition_rules`` applies to
+    params, grads, AND optimizer state (``optimizer_state`` names each
+    leaf after its param, so the same path suffixes match; scalar leaves
+    like AdamW's ``step`` are skipped by the matcher). Specs derive from
+    the ``ShardingRules`` table. Overrides go in FRONT (first
+    ``re.search`` hit wins)."""
+    _check_ported(cfg)
+    sp = rules.spec
+    return [
+        # factored second-moment stats (adafactor v_row/v_col) are
+        # rank-reduced mirrors named after their param: pinned replicated
+        # by name, in front of the param rules
+        (r"(^|/)v_(row|col)(/|$)", sp((None,))),
+        (r"(^|/)embed$", sp(("vocab", "embed"))),
+        (r"(attn_norm|mlp_norm|final_norm)$", sp((None,))),
+        (r"wq$", sp(("embed", "heads", "head_dim"))),
+        (r"(wk|wv)$", sp(("embed", "kv_heads", "head_dim"))),
+        (r"wo$", sp(("heads", "head_dim", "embed"))),
+        (r"lm_head$", sp(("embed", "vocab"))),
+        (r"(w_gate|w_up)$", sp(("embed", "mlp"))),
+        (r"w_down$", sp(("mlp", "embed"))),
+    ]
+
+
+def param_shardings(cfg: LlamaConfig, mesh, rules) -> Dict[str, Any]:
+    """Tree (same structure as ``logical_axes``) of DTensor placements."""
+    la = logical_axes(cfg)
+
+    def pl(axes):
+        return spec_placements(mesh, rules.spec(axes))
+
+    return {
+        "embed": pl(la["embed"]),
+        "layers": [{k: pl(v) for k, v in layer.items()} for layer in la["layers"]],
+        "final_norm": pl(la["final_norm"]),
+        "lm_head": pl(la["lm_head"]),
+    }
+
+
+def batch_sharding(mesh, rules) -> list:
+    """Placements of a ``[batch, seq]`` token batch."""
+    return spec_placements(mesh, rules.spec(("batch", "seq")))
+
+
+@torch.no_grad()
+def shard_model(cfg: LlamaConfig, model: "Llama", mesh, rules) -> "Llama":
+    """Turn ``model``'s params, in place, into DTensors placed by the rule
+    table (each param's ``partition_rules`` spec, which is its
+    ``param_shardings`` entry). Every rank must hold the same full values
+    (same seed, or the same loaded state): each keeps its own shard and
+    nothing is sent."""
+    from torch.distributed.tensor import distribute_tensor
+
+    specs = match_partition_rules(partition_rules(cfg, rules), model)
+    for path, spec in specs.items():
+        owner, _, leaf = path.replace("/", ".").rpartition(".")
+        mod = model.get_submodule(owner)
+        full = getattr(mod, leaf)
+        dt = distribute_tensor(full.detach(), placement_mesh(mesh),
+                               spec_placements(mesh, spec), src_data_rank=None)
+        setattr(mod, leaf, nn.Parameter(dt, requires_grad=full.requires_grad))
+    return model
+
+
+def init_sharded(cfg: LlamaConfig, mesh, rules, seed=0, optimizer=None):
+    """Params (and the optimizer over them) straight onto the mesh:
+    ``init_params(cfg, seed)`` on the mesh's device type, every param a
+    DTensor placed by the rule table. The same seed gives the same values
+    whatever the mesh (the unsharded init's draws, each rank keeping its
+    shard). ``optimizer`` is a factory over the params, such as
+    ``adamw(1e-3)``; its state (created at the first step, like each
+    param) is pinned to the same table by the step."""
+    model = shard_model(cfg, init_params(cfg, seed, device=mesh.device_type), mesh, rules)
+    if optimizer is None:
+        return model
+    return model, optimizer(model.parameters())
+
+
 def _to_torch(leaf) -> torch.Tensor:
     a = np.asarray(leaf)
     if a.dtype.name == "bfloat16":  # numpy has no bf16: carry the bits
@@ -259,57 +373,163 @@ def apply_rope(x, cos, sin):
     return torch.stack([out1, out2], dim=-1).reshape(x.shape).to(x.dtype)
 
 
-def _attention_block(cfg: LlamaConfig, p, x, cos, sin):
+def _replicated_like(x, t):
+    """``t`` (the same full value on every rank) as an operand of ``x``: a
+    replicated DTensor on ``x``'s mesh when ``x`` is a DTensor."""
+    from torch.distributed.tensor import DTensor, Replicate
+
+    if not isinstance(x, DTensor):
+        return t
+    mesh = x.device_mesh
+    return DTensor.from_local(t, mesh, [Replicate()] * mesh.ndim, run_check=False)
+
+
+def _attention(cfg: LlamaConfig, q, k, v):
+    """Causal flash attention on ``[B, S, H, hd]`` q/k/v. DTensor inputs
+    (batch and heads sharded independently, sequence whole) run the kernel
+    on each rank's local shard and come back with q's placements; each
+    rank's GQA groups must be whole."""
+    from torch.distributed.tensor import DTensor
+
+    def attend(q, k, v):
+        o = flash_attention(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+                            causal=True, impl=cfg.attention_impl)
+        return o.transpose(1, 2)
+
+    if not isinstance(q, DTensor):
+        return attend(q, k, v)
+    for t in (q, k, v):
+        if any(p.is_shard(1) for p in t.placements):
+            raise ValueError("flash attention needs the whole sequence on each rank "
+                             "(act_seq sharded is ring/Ulysses attention, ROADMAP Queue A 7)")
+    ql, kl, vl = q.to_local(), k.to_local(), v.to_local()
+    if ql.shape[2] % kl.shape[2] or kl.shape[2] * cfg.n_heads != ql.shape[2] * cfg.n_kv_heads:
+        raise ValueError(
+            f"local heads {ql.shape[2]} (q) and {kl.shape[2]} (kv) split a GQA group of "
+            f"{cfg.n_heads} // {cfg.n_kv_heads}: shard heads and kv heads alike")
+    return DTensor.from_local(attend(ql, kl, vl), q.device_mesh, q.placements, run_check=False)
+
+
+def _attention_block(cfg: LlamaConfig, p, x, cos, sin, mesh=None, rules=None):
     h = rms_norm(x, p.attn_norm, cfg.norm_eps)
     q = torch.einsum("bsd,dhk->bshk", h, p.wq)
     k = torch.einsum("bsd,dhk->bshk", h, p.wk)
     v = torch.einsum("bsd,dhk->bshk", h, p.wv)
+    # attention ENTRY pin: q/k/v leave the projection in the head-sharded
+    # layout the attention runs on
+    q = constrain(q, mesh, rules, ("act_batch", "act_seq", "act_heads", None))
+    k = constrain(k, mesh, rules, ("act_batch", "act_seq", "act_kv_heads", None))
+    v = constrain(v, mesh, rules, ("act_batch", "act_seq", "act_kv_heads", None))
     q = apply_rope(q, cos, sin)
     k = apply_rope(k, cos, sin)
-    # [B, S, H, hd] → [B, H, S, hd]; K/V stay at n_kv_heads (GQA in-kernel)
-    o = flash_attention(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
-                        causal=True, impl=cfg.attention_impl)
-    o = o.transpose(1, 2)
-    return x + torch.einsum("bshk,hkd->bsd", o.to(x.dtype), p.wo)
+    # K/V stay at n_kv_heads (GQA in-kernel)
+    o = _attention(cfg, q, k, v)
+    # attention EXIT pin; the flash output is what selective remat saves
+    o = constrain(o, mesh, rules, ("act_batch", "act_seq", "act_heads", None))
+    out = x + torch.einsum("bshk,hkd->bsd", o.to(x.dtype), p.wo)
+    return constrain(out, mesh, rules, ("act_batch", "act_seq", "act_embed"))
 
 
-def _mlp_block(cfg: LlamaConfig, p, x):
+def _mlp_block(cfg: LlamaConfig, p, x, mesh=None, rules=None):
     h = rms_norm(x, p.mlp_norm, cfg.norm_eps)
     gate = torch.einsum("bsd,dm->bsm", h, p.w_gate)
     up = torch.einsum("bsd,dm->bsm", h, p.w_up)
-    return x + torch.einsum("bsm,md->bsd", F.silu(gate) * up, p.w_down)
+    # Megatron split: the hidden activation shards over tensor, the
+    # down-projection's output all-reduces back to the replicated stream
+    gate = constrain(gate, mesh, rules, ("act_batch", "act_seq", "act_mlp"))
+    up = constrain(up, mesh, rules, ("act_batch", "act_seq", "act_mlp"))
+    out = x + torch.einsum("bsm,md->bsd", F.silu(gate) * up, p.w_down)
+    return constrain(out, mesh, rules, ("act_batch", "act_seq", "act_embed"))
 
 
-def _block(cfg: LlamaConfig, cos, sin, x, p):
-    return _mlp_block(cfg, p, _attention_block(cfg, p, x, cos, sin))
+def _block(cfg: LlamaConfig, cos, sin, mesh, rules, x, p):
+    # remat-boundary pin: the carry is the tensor saved at every
+    # checkpoint boundary
+    x = constrain(x, mesh, rules, ("act_batch", "act_seq", "act_embed"))
+    x = _attention_block(cfg, p, x, cos, sin, mesh, rules)
+    return _mlp_block(cfg, p, x, mesh, rules)
+
+
+def _save_dots_and_flash(ctx, op, *args, **kwargs):
+    """The JAX selective policy (``dots_with_no_batch_dims_saveable`` +
+    ``save_only_these_names("flash_attn_out")``) as a per-op policy: the
+    projections' products (einsum lowers a dot with no batch dims to
+    ``bmm`` with batch 1, or ``mm``) and the flash forward's outputs are
+    saved; norms, RoPE, SiLU, casts and residual adds are recomputed."""
+    if op is torch.ops.aten.mm.default or op is torch.ops.ray_tpu_torch.flash_attention_fwd.default:
+        return CheckpointPolicy.MUST_SAVE
+    if op is torch.ops.aten.bmm.default and args[0].shape[0] == 1:
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _selective_context():
+    return create_selective_checkpoint_contexts(_save_dots_and_flash)
+
+
+def _remat_policy(remat):
+    """``remat``: False (no checkpointing), True/"full" (recompute every
+    layer in the backward), or "selective" (save matmul outputs and the
+    flash-attention output, recompute only the cheap elementwise tail).
+    Returns ``(context_fn or None, do_remat)``."""
+    if remat in (False, None):
+        return None, False
+    if remat is True or remat == "full":
+        return None, True
+    if remat == "selective":
+        return _selective_context, True
+    raise ValueError(f"remat must be False, True, 'full', or 'selective'; got {remat!r}")
 
 
 def forward(cfg: LlamaConfig, params: Llama, tokens, *, remat=False, mesh=None, rules=None):
     """tokens [B, S] int → logits [B, S, vocab] (f32).
 
-    ``remat``: False, or True/"full" (every layer recomputed in the
-    backward, ``torch.utils.checkpoint``)."""
-    _check_ported(cfg, remat, mesh, rules)
+    With ``rules`` (a ``ShardingRules``) AND a mesh, every intermediate is
+    pinned to the table (DTensors throughout; the params must be DTensors,
+    see ``init_sharded``); without them the function is the unconstrained
+    single-device one. ``remat``: False | True/"full" | "selective"
+    (``torch.utils.checkpoint`` per layer; see ``_remat_policy``)."""
+    _check_ported(cfg, remat)
+    if mesh is None or rules is None:
+        mesh = rules = None
+    context_fn, do_remat = _remat_policy(remat)
     B, S = tokens.shape
-    x = params.embed[tokens]
-    cos, sin = rope_tables(cfg, S, device=x.device)
-    block = functools.partial(_block, cfg, cos, sin)
+    # the lookup reads a replicated table: the all-gather of a sharded
+    # table is voluntary (ZeRO-3: params materialize for compute)
+    emb = constrain(params.embed, mesh, rules, (None, None))
+    tokens = constrain(tokens, mesh, rules, ("act_batch", "act_seq"))
+    x = F.embedding(tokens, emb)
+    x = constrain(x, mesh, rules, ("act_batch", "act_seq", "act_embed"))
+    cos, sin = (_replicated_like(x, t) for t in rope_tables(cfg, S, device=x.device))
+    block = functools.partial(_block, cfg, cos, sin, mesh, rules)
     for p in params.layers:
-        x = checkpoint(block, x, p, use_reentrant=False) if remat else block(x, p)
+        if not do_remat:
+            x = block(x, p)
+        elif context_fn is None:
+            x = checkpoint(block, x, p, use_reentrant=False)
+        else:
+            x = checkpoint(block, x, p, use_reentrant=False, context_fn=context_fn)
     x = rms_norm(x, params.final_norm, cfg.norm_eps)
-    return torch.einsum("bsd,dv->bsv", x, params.lm_head).float()
+    logits = torch.einsum("bsd,dv->bsv", x, params.lm_head).float()
+    return constrain(logits, mesh, rules, ("act_batch", "act_seq", "act_vocab"))
 
 
 def next_token_loss(cfg: LlamaConfig, params: Llama, tokens, targets, *, remat=False,
                     mesh=None, rules=None):
     """Mean next-token NLL (f32 log-softmax over the vocabulary); the MoE
-    aux term of the JAX loss is 0 for the dense FFN, the only one ported."""
+    aux term of the JAX loss is 0 for the dense FFN, the only one ported.
+    Sharded, the loss is a replicated scalar DTensor."""
     logits = forward(cfg, params, tokens, remat=remat, mesh=mesh, rules=rules)
-    return F.cross_entropy(logits.reshape(-1, cfg.vocab_size), targets.reshape(-1).long())
+    if mesh is None or rules is None:
+        return F.cross_entropy(logits.reshape(-1, cfg.vocab_size), targets.reshape(-1).long())
+    targets = constrain(targets, mesh, rules, ("act_batch", "act_seq"))
+    logp = torch.log_softmax(logits, dim=-1)
+    nll = -torch.gather(logp, -1, targets[..., None].long())
+    return constrain(nll.mean(), mesh, rules, ())
 
 
 # ---------------------------------------------------------------------------
-# training step (single device)
+# training step
 
 
 def adamw(learning_rate: float, b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8,
@@ -320,24 +540,119 @@ def adamw(learning_rate: float, b1: float = 0.9, b2: float = 0.999, eps: float =
                              weight_decay=weight_decay)
 
 
+def _check_placed(tree, mesh, prules, what: str, want: dict) -> None:
+    """Every leaf of ``tree`` is a DTensor on ``mesh`` with the placements
+    its partition rule gives (scalars, which the rules skip, excepted).
+    ``want`` caches the placements by path and shape across calls."""
+    from torch.distributed.tensor import DTensor
+
+    names, leaves = tree_path_names(tree), tree_leaves(tree)
+    missing = [(n, x) for n, x in zip(names, leaves) if (n, tuple(x.shape)) not in want]
+    if missing:
+        specs = tree_leaves(match_partition_rules(prules, dict(missing)))
+        for (name, leaf), spec in zip(missing, specs):
+            want[name, tuple(leaf.shape)] = tuple(spec_placements(mesh, spec))
+    for name, leaf in zip(names, leaves):
+        if leaf.dim() == 0 or leaf.numel() == 1:
+            continue
+        placed = want[name, tuple(leaf.shape)]
+        if not isinstance(leaf, DTensor) or tuple(leaf.placements) != placed:
+            got = tuple(leaf.placements) if isinstance(leaf, DTensor) else "a plain tensor"
+            raise ValueError(f"{what} {name!r} is {got}, its rule places it {placed} "
+                             "(build the model with init_sharded)")
+
+
 def make_train_step(cfg: LlamaConfig, *, remat=False, mesh=None, rules=None):
     """Returns ``step((model, opt), batch) → ((model, opt), loss)``, where
     ``opt`` is a ``torch.optim`` optimizer over the model's parameters
     (e.g. ``adamw(1e-3)(model.parameters())``; the JAX step takes the optax
     transformation instead, and its state the optax state). Parameters
     and optimizer state update in place, the port's analogue of the JAX
-    step's donation."""
-    _check_ported(cfg, remat, mesh, rules)
+    step's donation.
 
-    def step(state, batch):
+    With ``rules`` (a ``ShardingRules``) and ``mesh``, the unified
+    named-sharding path engages: params (DTensors from ``init_sharded``),
+    grads and optimizer state are all held to the one spec table
+    (``partition_rules`` + ``match_partition_rules``) and the forward pins
+    its intermediates. The grads leave the backward with the placements
+    DTensor's rules give them (partial sums over the batch axes), and
+    pinning them to the params' placements is the gradient all-reduce or
+    reduce-scatter. ``remat``: False | True/"full" | "selective"."""
+    _check_ported(cfg, remat)
+    if mesh is None or rules is None:
+
+        def step(state, batch):
+            model, opt = state
+            opt.zero_grad(set_to_none=True)
+            loss = next_token_loss(cfg, model, batch["tokens"], batch["targets"], remat=remat)
+            loss.backward()
+            opt.step()
+            return (model, opt), loss.detach()
+
+        return step
+
+    prules = partition_rules(cfg, rules)
+    placed: dict = {}  # (path, shape) -> placements, for _check_placed
+
+    def sharded_step(state, batch):
         model, opt = state
-        opt.zero_grad(set_to_none=True)
-        loss = next_token_loss(cfg, model, batch["tokens"], batch["targets"], remat=remat)
-        loss.backward()
+        _check_placed(model, mesh, prules, "param", placed)
+        names = [n.replace(".", "/") for n, _ in model.named_parameters()]
+        params = list(model.parameters())
+        loss = next_token_loss(cfg, model, batch["tokens"], batch["targets"], remat=remat,
+                               mesh=mesh, rules=rules)
+        grads = constrain_tree(dict(zip(names, torch.autograd.grad(loss, params))), mesh, prules)
+        for p, g in zip(params, grads.values()):
+            p.grad = g
         opt.step()
-        return (model, opt), loss.detach()
+        opt.zero_grad(set_to_none=True)
+        _check_placed(optimizer_state(model, opt), mesh, prules, "optimizer state", placed)
+        return (model, opt), loss.detach().full_tensor()
 
-    return step
+    return sharded_step
+
+
+def host_state(model: Llama, opt) -> Dict[str, Dict[str, Any]]:
+    """A checkpoint of ``model`` and its optimizer as full host tensors:
+    ``{"params": {path: tensor}, "optimizer": {state_key: {path: tensor}}}``
+    (paths as ``optimizer_state`` names them). DTensors are gathered, so
+    every rank of the mesh calls it."""
+    from torch.distributed.tensor import DTensor
+
+    def host(t):
+        if isinstance(t, DTensor):
+            t = t.full_tensor()
+        return t.detach().cpu().clone()
+
+    return {
+        "params": {n.replace(".", "/"): host(p) for n, p in model.named_parameters()},
+        "optimizer": {key: {path: host(t) for path, t in by_path.items()}
+                      for key, by_path in optimizer_state(model, opt).items()},
+    }
+
+
+@torch.no_grad()
+def load_host_state(model: Llama, opt, state: Dict[str, Dict[str, Any]]) -> None:
+    """Load ``host_state``'s checkpoint into ``model`` and ``opt`` in place,
+    each tensor placed as the param it belongs to (every rank keeps its
+    shard of the full host value)."""
+    from torch.distributed.tensor import DTensor, distribute_tensor
+
+    params = {n.replace(".", "/"): p for n, p in model.named_parameters()}
+
+    def like(p, value):
+        value = value.to(device=p.device, dtype=p.dtype)
+        if isinstance(p, DTensor):
+            return distribute_tensor(value, p.device_mesh, p.placements, src_data_rank=None)
+        return value
+
+    for path, value in state["params"].items():
+        params[path].copy_(like(params[path], value))
+    for key, by_path in state["optimizer"].items():
+        for path, value in by_path.items():
+            p = params[path]
+            # a scalar (AdamW's ``step``) stays a plain tensor, as AdamW makes it
+            opt.state[p][key] = value.clone() if value.dim() == 0 else like(p, value)
 
 
 # ---------------------------------------------------------------------------

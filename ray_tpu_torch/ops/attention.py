@@ -22,7 +22,8 @@ its ``launches`` attribute; for a CPU tensor it runs the kernel's plain
 PyTorch version (``_*_plain``, same function, same casts), which the CPU
 tests use and ``chip_smoke.py`` compares the kernel against. There is no
 fallback from a CUDA tensor to the plain version. The gradient is wired
-through ``FlashAttentionFunction`` (the ``jax.custom_vjp`` of the JAX op).
+through ``flash_attention_fwd``, a registered operator with an autograd
+formula (the ``jax.custom_vjp`` of the JAX op).
 
 Layouts as in the JAX op: ``[batch, heads, seq, head_dim]``; GQA keeps K/V
 at ``kv_heads`` with ``heads % kv_heads == 0`` and maps each q head to its
@@ -32,7 +33,7 @@ kv head inside the kernels.
 from __future__ import annotations
 
 import math
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
@@ -313,26 +314,39 @@ reset_launch_counts()
 # public op
 
 
-class FlashAttentionFunction(torch.autograd.Function):
-    """The JAX op's ``_flash3`` custom_vjp: the forward kernel saves
-    ``(q, k, v, o, lse)``; the backward computes ``delta = rowsum(dO o O)``
-    as a plain op and runs the dq and dk/dv kernels."""
+@torch.library.custom_op("ray_tpu_torch::flash_attention_fwd", mutates_args=())
+def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool,
+                        sm_scale: float, h: int, hk: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The JAX op's ``_flash3`` custom_vjp as one registered operator
+    (``torch.ops.ray_tpu_torch.flash_attention_fwd``): the forward kernel
+    gives ``(o, lse)``; its autograd formula computes ``delta =
+    rowsum(dO o O)`` as a plain op and runs the dq and dk/dv kernels.
 
-    @staticmethod
-    def forward(ctx, q, k, v, causal: bool, sm_scale: float, h: int, hk: int):
-        o, lse = flash_fwd(q, k, v, causal=causal, sm_scale=sm_scale, h=h, hk=hk)
-        ctx.save_for_backward(q, k, v, o, lse)
-        ctx.args = dict(causal=causal, sm_scale=sm_scale, h=h, hk=hk)
-        return o
+    It is an operator, not an ``autograd.Function``, so that a dispatch
+    mode sees it: selective checkpointing (``models.llama``'s
+    ``remat="selective"``) saves its outputs by this name, as the JAX
+    policy saves ``flash_attn_out``, where it would otherwise rerun the
+    kernel in the recompute."""
+    return flash_fwd(q, k, v, causal=causal, sm_scale=sm_scale, h=h, hk=hk)
 
-    @staticmethod
-    def backward(ctx, do):
-        q, k, v, o, lse = ctx.saved_tensors
-        do = do.contiguous()
-        delta = (do.float() * o.float()).sum(dim=-1, keepdim=True)
-        dq = flash_bwd_dq(q, k, v, do, lse, delta, **ctx.args)
-        dk, dv = flash_bwd_dkv(q, k, v, do, lse, delta, **ctx.args)
-        return dq, dk, dv, None, None, None, None
+
+def _flash_attention_setup(ctx, inputs, output):
+    q, k, v, causal, sm_scale, h, hk = inputs
+    o, lse = output
+    ctx.save_for_backward(q, k, v, o, lse)
+    ctx.args = dict(causal=causal, sm_scale=sm_scale, h=h, hk=hk)
+
+
+def _flash_attention_bwd(ctx, do, _dlse):
+    q, k, v, o, lse = ctx.saved_tensors
+    do = do.contiguous()
+    delta = (do.float() * o.float()).sum(dim=-1, keepdim=True)
+    dq = flash_bwd_dq(q, k, v, do, lse, delta, **ctx.args)
+    dk, dv = flash_bwd_dkv(q, k, v, do, lse, delta, **ctx.args)
+    return dq, dk, dv, None, None, None, None
+
+
+flash_attention_fwd.register_autograd(_flash_attention_bwd, setup_context=_flash_attention_setup)
 
 
 def flash_attention(
@@ -355,7 +369,7 @@ def flash_attention(
     ``impl``: ``"pallas"`` runs the hand-written CUDA kernels (and raises
     on a CPU tensor); ``"xla"`` runs the plain reference (K/V repeated);
     ``"auto"`` takes the kernels for a CUDA tensor and, for a CPU tensor,
-    the same autograd function over the kernels' plain versions.
+    the same operator over the kernels' plain versions.
 
     The ``block_*`` arguments are validated exactly as the JAX op validates
     them (``_pick_block``), so the port accepts the same shapes; the CUDA
@@ -403,5 +417,5 @@ def flash_attention(
     qf = q.reshape(b * h, seq_q, d).contiguous()
     kf = k.reshape(b * hk, seq_k, d).contiguous()
     vf = v.reshape(b * hk, seq_k, d).contiguous()
-    o = FlashAttentionFunction.apply(qf, kf, vf, causal, float(sm_scale), h, hk)
+    o, _ = flash_attention_fwd(qf, kf, vf, causal, float(sm_scale), h, hk)
     return o.reshape(b, h, seq_q, d)

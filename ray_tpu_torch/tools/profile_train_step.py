@@ -1,9 +1,12 @@
 """Where the time of one Llama training step goes, on the card.
 
-``python -m ray_tpu_torch.tools.profile_train_step [--seed N]`` builds the
-training slice with ``train_slice`` (7B width, 4 layers, batch 2 x 2048,
-bf16, AdamW) -- the same function ``chip_smoke.py`` builds the slice it
-times with -- warms it up for one step, then records 2 steps under
+``python -m ray_tpu_torch.tools.profile_train_step [--seed N] [--step
+plain|trainer]`` builds the training slice with ``train_slice`` (7B width,
+4 layers, batch 2 x 2048, bf16, AdamW) -- the same function
+``chip_smoke.py`` builds the slice it times with -- or, with ``--step
+trainer``, the same slice as a ``TorchTrainer`` worker steps it
+(``trainer_step``: DTensor params on a world-1 mesh, fsdp rules,
+selective remat), warms it up for one step, then records 2 steps under
 ``torch.profiler`` (CPU + CUDA activities). It prints one JSON line:
 
 * ``step_ms``: host wall time per profiled step (the profiler's own cost
@@ -44,6 +47,23 @@ def train_slice(seed: int = 0):
     return cfg, (model, opt), L.make_train_step(cfg), batch
 
 
+def trainer_step(seed: int = 0):
+    """The slice as a ``TorchTrainer`` worker runs it
+    (``tools/train_llama.py``), in this process: the same params and
+    batch as ``train_slice(seed)``, sharded by the fsdp rules on a world-1
+    mesh (an nccl group started here) and stepped by
+    ``make_train_step(mesh=, rules=, remat="selective")``."""
+    from ray_tpu_torch.parallel.mesh import MeshSpec, make_mesh
+    from ray_tpu_torch.parallel.sharding import fsdp_rules
+
+    cfg, (model, _), _, batch = train_slice(seed)
+    mesh, rules = make_mesh(MeshSpec(fsdp=-1)), fsdp_rules()
+    L.shard_model(cfg, model, mesh, rules)
+    opt = L.adamw(SLICE["lr"])(model.parameters())
+    step = L.make_train_step(cfg, remat="selective", mesh=mesh, rules=rules)
+    return cfg, (model, opt), step, batch
+
+
 def _device_us(event) -> float:
     for attr in ("self_device_time_total", "self_cuda_time_total"):
         if hasattr(event, attr):
@@ -63,10 +83,13 @@ def _group(name: str) -> str:
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--step", choices=("plain", "trainer"), default="plain",
+                    help="plain: make_train_step(cfg); trainer: the step a TorchTrainer "
+                         "worker runs (trainer_step)")
     args = ap.parse_args()
     n_steps = 2
 
-    _, state, step, batch = train_slice(args.seed)
+    _, state, step, batch = (train_slice if args.step == "plain" else trainer_step)(args.seed)
     state, _ = step(state, batch)
     torch.cuda.synchronize()
 
@@ -93,7 +116,7 @@ def main() -> None:
     print(json.dumps({
         "config": "LlamaConfig.llama2_7b(n_layers={n_layers}) b={batch} S={seq} bf16".format(
             **SLICE),
-        "steps": n_steps, "step_ms": wall_ms / n_steps,
+        "step": args.step, "steps": n_steps, "step_ms": wall_ms / n_steps,
         "device_busy_ms": busy_ms / n_steps, "idle_share": 1 - busy_ms / wall_ms,
         "groups_ms_per_step": groups,
         "top": [{"kernel": e.key[:90], "ms_per_step": _device_us(e) / 1e3 / n_steps,
