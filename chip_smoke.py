@@ -192,6 +192,33 @@ JSON line on stdout:
    losses equal within 2^-8 across modes (the second follows an update,
    so it holds each mode's backward); it prints each mode's step ms and
    peak memory.
+12. moe (the training state freed first): MoE FFNs in the flagship step.
+   (a) tiny f32 with TF32 off: ``moe_ffn`` on the card against the same
+   call on CPU copies of its inputs, uncapped and at capacity factor 0.5
+   (``out`` and ``aux_loss`` within 1e-5, the dropped fraction equal, none
+   dropped uncapped), and 3 steps of ``LlamaConfig.tiny(moe_experts=4)``
+   through the kernels against the plain attention (losses within 1e-5
+   relative); (b) ``LlamaConfig.llama2_7b(moe_experts=8, n_layers=4)``
+   (4,859,269,120 parameters, capacity 1,280 slots an expert) on phase
+   ``slice``'s batch with AdamW and selective remat, 1 warm and 3 timed
+   steps: the loss finite and falling, each kernel launched n_layers
+   times a step, all on the tensor cores; it prints step ms, tokens/s and
+   peak memory beside ``slice``'s step ms, the summed aux loss and each
+   layer's dropped fraction per step, and one profiled step's device ms
+   in four groups (dispatch/combine einsums, expert GEMMs, flash kernels,
+   the rest) with its idle share; (c) (b)'s model from the same seed under
+   ``tp_rules`` on a world-1 nccl mesh, 2 steps: both losses within 2^-8
+   of (b)'s first two, step ms printed.
+13. seq_parallel: (a) ``ring_attention_sharded`` and
+   ``ulysses_attention_sharded`` on a world-1 nccl mesh in f32 (GQA),
+   outputs and q/k/v gradients within 1e-5 of ``reference_attention``;
+   (b) phase ``slice``'s config, params and batch with
+   ``attention_impl="ulysses"`` and ``"ring"`` through
+   ``make_train_step(mesh=<world-1 mesh>, remat="selective")`` with no
+   rules, 2 steps each: Ulysses' losses within 2^-8 of ``slice``'s and
+   each kernel launched n_layers times a step on the tensor cores; the
+   ring's within 2^-6 (its chunks are f32 einsums) and no kernel launched;
+   each step ms printed beside ``slice``'s.
    Then the script's total seconds.
 
 Then the ``kernels`` summary line, the ``nvidia-smi`` line, and last the
@@ -2625,6 +2652,345 @@ def phase_train(torch, A, L, smi: str, slice_summary: dict):
     check(not left, f"no process of the cluster survives shutdown: {left}")
 
 
+# ---------------------------------------------------------------------------
+# 12. moe
+
+
+#: the expert phase's 7B-width config: the repo's own MoE defaults (top-2,
+#: capacity factor 1.25, aux coefficient 0.01) over 8 experts, depth cut
+MOE_EXPERTS, MOE_LAYERS = 8, 4
+#: the f32 MoE FFN on the card against its CPU run, and the tiny step's
+#: losses with the kernels against the plain attention
+MOE_F32_ATOL, MOE_F32_LOSS_RTOL = 1e-5, 1e-5
+MATMULS = ("aten::mm", "aten::bmm", "aten::addmm", "aten::baddbmm")
+
+
+def moe_tiny_f32(torch, L, smi):
+    """(a) tiny f32: ``moe_ffn`` on the card against the same call on CPU
+    copies of its inputs (uncapped and capped), and 3 steps of the tiny MoE
+    Llama through the kernels against the plain attention."""
+    from ray_tpu_torch.ops import moe as M
+
+    cfg = L.LlamaConfig.tiny(moe_experts=4, max_seq_len=128)
+    g = torch.Generator(device="cuda").manual_seed(5)
+    params = M.init_moe_params(g, cfg.dim, cfg.mlp_hidden, cfg.moe_experts)
+    x = torch.randn((2, 64, cfg.dim), generator=g, device="cuda")
+    ffn = {}
+    for cf in (8.0, 0.5):
+        out, aux = M.moe_ffn(params, x, top_k=cfg.moe_top_k, capacity_factor=cf)
+        ref, raux = M.moe_ffn({k: v.cpu() for k, v in params.items()}, x.cpu(),
+                              top_k=cfg.moe_top_k, capacity_factor=cf)
+        ffn[f"cf={cf}"] = {
+            "out_max_abs_err": float((out.cpu() - ref).abs().max()),
+            "aux_loss_abs_err": abs(float(aux["aux_loss"]) - float(raux["aux_loss"])),
+            "dropped_fraction": float(aux["dropped_fraction"]),
+            "cpu_dropped_fraction": float(raux["dropped_fraction"]),
+        }
+    toks = torch.randint(0, cfg.vocab_size, (2, 129), generator=g, device="cuda")
+    batch = {"tokens": toks[:, :-1], "targets": toks[:, 1:]}
+    losses = {}
+    for impl in ("pallas", "xla"):
+        c = L.LlamaConfig.tiny(moe_experts=4, max_seq_len=128, attention_impl=impl)
+        model = L.init_params(c, 0)
+        state, step = (model, L.adamw(1e-3)(model.parameters())), L.make_train_step(c)
+        losses[impl] = []
+        for _ in range(3):
+            state, loss = step(state, batch)
+            losses[impl].append(float(loss))
+    rel = max(abs(a - b) / abs(b) for a, b in zip(losses["pallas"], losses["xla"]))
+    emit({"phase": "moe", "part": "a_tiny_f32", "config": "LlamaConfig.tiny(moe_experts=4) f32",
+          "tf32": False, "moe_ffn": ffn, "tol": MOE_F32_ATOL, "losses": losses,
+          "loss_max_rel_diff": rel, "loss_rtol": MOE_F32_LOSS_RTOL, "nvidia_smi": smi})
+    for case, r in ffn.items():
+        check(max(r["out_max_abs_err"], r["aux_loss_abs_err"]) <= MOE_F32_ATOL,
+              f"moe_ffn {case} on the card against the CPU: {r}")
+        check(r["dropped_fraction"] == r["cpu_dropped_fraction"], f"moe_ffn {case} drops: {r}")
+    check(ffn["cf=8.0"]["dropped_fraction"] == 0.0 and ffn["cf=0.5"]["dropped_fraction"] > 0,
+          f"uncapped drops nothing, capped drops some: {ffn}")
+    check(rel <= MOE_F32_LOSS_RTOL, f"tiny MoE losses, kernels against plain: {losses}")
+
+
+def record_moe(L):
+    """Wrap the model's ``moe_ffn`` so that each call adds an entry to
+    ``calls`` as it starts and fills it with the aux dict (detached, no host
+    sync) as it returns: a selective recompute may stop inside the call
+    once it has what the backward needs, leaving its entry empty. Returns
+    ``(calls, wrapped, inner)``."""
+    calls, inner = [], L.moe_ffn
+
+    def wrapped(*args, **kw):
+        entry = {}
+        calls.append(entry)
+        out, aux = inner(*args, **kw)
+        entry.update({k: v.detach() for k, v in aux.items()})
+        return out, aux
+
+    return calls, wrapped, inner
+
+
+def moe_device_split(torch, step, state, batch, cfg) -> dict:
+    """One profiled step's device ms in four groups: the flash kernels (by
+    kernel name), the expert GEMMs (matmuls batched over the experts), the
+    dispatch/combine einsums (matmuls with the capacity or experts x
+    capacity among their dims; f32) and the rest."""
+    from ray_tpu_torch.ops.moe import moe_capacity
+
+    E = cfg.moe_experts
+    T = batch["tokens"].numel()
+    C = moe_capacity(T, E, cfg.moe_top_k, cfg.moe_capacity_factor)
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=acts, record_shapes=True) as prof:
+        t0 = time.perf_counter()
+        state, _ = step(state, batch)
+        torch.cuda.synchronize()
+        wall_ms = 1e3 * (time.perf_counter() - t0)
+    ms = dict.fromkeys(("dispatch_combine", "expert_gemms", "flash", "rest"), 0.0)
+    busy, by_kernel = 0.0, {}
+    for e in prof.events():
+        if e.device_type.name == "CUDA" and "#" not in e.name \
+                and not getattr(e, "is_user_annotation", False):
+            dur = e.time_range.elapsed_us() / 1e3
+            busy += dur
+            by_kernel[e.name[:90]] = by_kernel.get(e.name[:90], 0.0) + dur
+            if "flash" in e.name.lower():
+                ms["flash"] += dur
+        elif e.device_type.name == "CPU" and e.name in MATMULS:
+            shapes = [tuple(s) for s in e.input_shapes if s]
+            if "bmm" in e.name and len(shapes[0]) == 3 and shapes[0][0] == E:
+                group = "expert_gemms"
+            elif any(C in s or E * C in s for s in shapes):
+                group = "dispatch_combine"
+            else:
+                continue
+            ms[group] += sum(k.duration for k in e.kernels) / 1e3
+    ms["rest"] = busy - ms["flash"] - ms["expert_gemms"] - ms["dispatch_combine"]
+    top = sorted(by_kernel.items(), key=lambda kv: kv[1], reverse=True)[:12]
+    return {"device_ms": ms, "device_busy_ms": busy, "wall_ms": wall_ms,
+            "idle_share": 1 - busy / wall_ms, "capacity": C, "tokens": T,
+            "top_kernels_ms": dict(top)}
+
+
+def moe_7b(torch, A, L, smi, slice_summary):
+    """(b) the 8-expert Llama at 7B width: 1 warm and 3 timed steps of the
+    unsharded step under selective remat on phase ``slice``'s batch, then
+    one profiled step."""
+    from ray_tpu_torch.tools.profile_train_step import SLICE, slice_batch
+
+    steps_timed = 3
+    cfg = L.LlamaConfig.llama2_7b(moe_experts=MOE_EXPERTS, n_layers=MOE_LAYERS)
+    batch = slice_batch(0, cfg.vocab_size)
+    model = L.init_params(cfg, 0)
+    state = (model, L.adamw(SLICE["lr"])(model.parameters()))
+    step = L.make_train_step(cfg, remat="selective")
+    calls, wrapped, inner = record_moe(L)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    L.moe_ffn = wrapped
+    try:
+        A.reset_launch_counts()  # this run starts here
+        state, loss = step(state, batch)
+        losses = [float(loss)]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(steps_timed):
+            state, loss = step(state, batch)
+            losses.append(float(loss))
+        torch.cuda.synchronize()
+        elapsed = time.perf_counter() - t0
+        launches = {fn.__name__: fn.launches for fn in A.KERNELS}  # read just after
+        routes = {fn.__name__: dict(fn.route_launches) for fn in A.KERNELS}
+    finally:
+        L.moe_ffn = inner
+    peak = torch.cuda.max_memory_allocated()
+    steps = 1 + steps_timed
+    # each step calls moe_ffn once per layer in the forward, then once per
+    # layer in the selective recompute; the forward's calls are the step's
+    per_step = 2 * cfg.n_layers
+    check(len(calls) == steps * per_step, f"moe_ffn called {len(calls)} times in {steps} steps")
+    fwd = [calls[i * per_step:i * per_step + cfg.n_layers] for i in range(steps)]
+    check(all(c for f in fwd for c in f), "every forward moe_ffn call returned its aux")
+    aux = [sum(float(c["aux_loss"]) for c in f) for f in fwd]
+    dropped = [[float(c["dropped_fraction"]) for c in f] for f in fwd]
+    split = moe_device_split(torch, step, state, batch, cfg)
+    step_s = elapsed / steps_timed
+    tokens = batch["tokens"].numel()
+    emit({"phase": "moe", "part": "b_7b_bf16",
+          "config": f"LlamaConfig.llama2_7b(moe_experts={MOE_EXPERTS}, n_layers={MOE_LAYERS})",
+          "reduced": [f"n_layers 32 -> {MOE_LAYERS}"], "params": L.param_count(cfg),
+          "top_k": cfg.moe_top_k, "capacity_factor": cfg.moe_capacity_factor,
+          "batch": SLICE["batch"], "seq": SLICE["seq"], "dtype": "bfloat16",
+          "remat": "selective", "optimizer": f"adamw(lr={SLICE['lr']})", "losses": losses,
+          "aux_loss_per_step": aux, "dropped_fraction_per_step_by_layer": dropped,
+          "step_ms": 1e3 * step_s, "tokens_per_s": tokens / step_s,
+          "slice_step_ms": slice_summary["step_ms"], "max_memory_allocated_bytes": peak,
+          "launches": launches, "launches_by_route": routes, "profiled_step": split,
+          "nvidia_smi": smi})
+    check(all(math.isfinite(x) for x in losses + aux), f"losses and aux finite: {losses} {aux}")
+    check(losses[-1] < losses[0], f"loss falls: {losses}")
+    for name, n in launches.items():
+        want = cfg.n_layers * steps
+        check(n == want, f"moe {name} launched {n} times, expected {want}")
+        check(routes[name] == {"tensor_core": want, "cuda_core": 0},
+              f"moe {name} by route {routes[name]}: all must take the tensor cores")
+    check(split["device_ms"]["expert_gemms"] > 0 and split["device_ms"]["dispatch_combine"] > 0,
+          f"the profiled step's matmuls were attributed: {split}")
+    return cfg, losses, 1e3 * step_s
+
+
+def moe_rules_step(torch, L, smi, cfg, ref_losses, ref_step_ms):
+    """(c) (b)'s model from the same seed under ``tp_rules`` on a world-1
+    nccl mesh (DTensor params, ``moe_ffn_sharded``), 2 steps."""
+    from ray_tpu_torch.parallel.mesh import MeshSpec, make_mesh
+    from ray_tpu_torch.parallel.sharding import tp_rules
+    from ray_tpu_torch.tools.profile_train_step import SLICE, slice_batch
+
+    mesh, rules = make_mesh(MeshSpec()), tp_rules()
+    batch = slice_batch(0, cfg.vocab_size)
+    model = L.shard_model(cfg, L.init_params(cfg, 0), mesh, rules)
+    state = (model, L.adamw(SLICE["lr"])(model.parameters()))
+    step = L.make_train_step(cfg, remat="selective", mesh=mesh, rules=rules)
+    losses, ms = [], []
+    for _ in range(2):
+        t0 = time.perf_counter()
+        state, loss = step(state, batch)
+        losses.append(float(loss))
+        torch.cuda.synchronize()
+        ms.append(1e3 * (time.perf_counter() - t0))
+    rel = max(abs(a - b) / abs(b) for a, b in zip(losses, ref_losses))
+    emit({"phase": "moe", "part": "c_tp_rules_world1",
+          "config": f"LlamaConfig.llama2_7b(moe_experts={MOE_EXPERTS}, n_layers={MOE_LAYERS})",
+          "mesh": "world 1, nccl", "rules": "tp", "remat": "selective", "losses": losses,
+          "unsharded_losses": ref_losses[:2], "max_rel_diff": rel, "step_ms": ms,
+          "unsharded_step_ms": ref_step_ms, "nvidia_smi": smi})
+    check(rel <= BF16_LOSS_RTOL, f"tp-rules MoE losses {losses} vs unsharded {ref_losses[:2]}")
+
+
+def phase_moe(torch, A, L, smi: str, slice_summary: dict):
+    """MoE FFNs in the flagship step: (a) tiny f32, (b) 7B width, (c) the
+    rule-constrained step."""
+    import torch.distributed as dist
+
+    gc_collect(torch)
+    t_phase = time.perf_counter()
+    moe_tiny_f32(torch, L, smi)
+    gc_collect(torch)
+    cfg, losses, step_ms = moe_7b(torch, A, L, smi, slice_summary)
+    gc_collect(torch)
+    try:
+        moe_rules_step(torch, L, smi, cfg, losses, step_ms)
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+    gc_collect(torch)
+    emit({"phase": "moe", "part": "end", "seconds": time.perf_counter() - t_phase})
+
+
+# ---------------------------------------------------------------------------
+# 13. seq_parallel
+
+
+#: the ring's losses at 7B width against phase slice's: its chunk products
+#: are f32 einsums where the slice's attention is the bf16 flash kernel
+RING_LOSS_RTOL = 2.0 ** -6
+SEQ_F32_ATOL = 1e-5
+
+
+def seq_tiny_f32(torch, mesh, smi):
+    """(a) ring and Ulysses on one rank in f32 (GQA, 4 q heads over 2 kv
+    heads): outputs and q/k/v gradients against ``reference_attention``."""
+    from ray_tpu_torch.ops.attention import reference_attention
+    from ray_tpu_torch.ops.ring_attention import ring_attention_sharded, ulysses_attention_sharded
+
+    b, h, hk, s, d = 2, 4, 2, 128, 16
+    g = torch.Generator(device="cuda").manual_seed(7)
+    q, k, v = (torch.randn((b, n, s, d), generator=g, device="cuda") for n in (h, hk, hk))
+
+    def run(fn):
+        leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+        o = fn(*leaves)
+        (o ** 2).mean().backward()
+        return [o.detach()] + [t.grad for t in leaves]
+
+    rep = h // hk
+    ref = run(lambda q, k, v: reference_attention(q, k.repeat_interleave(rep, 1),
+                                                  v.repeat_interleave(rep, 1), causal=True))
+    errs = {}
+    for name, fn in (("ring", lambda q, k, v: ring_attention_sharded(q, k, v, mesh,
+                                                                     kv_repeat=rep)),
+                     ("ulysses", lambda q, k, v: ulysses_attention_sharded(q, k, v, mesh))):
+        got = run(fn)
+        errs[name] = {w: float((a - r).abs().max()) for w, a, r in zip(("o", "dq", "dk", "dv"),
+                                                                     got, ref)}
+    emit({"phase": "seq_parallel", "part": "a_tiny_f32", "shape": [b, h, hk, s, d],
+          "mesh": "world 1, nccl", "max_abs_err": errs, "tol": SEQ_F32_ATOL, "nvidia_smi": smi})
+    for name, e in errs.items():
+        check(max(e.values()) <= SEQ_F32_ATOL, f"{name} against the reference: {e}")
+
+
+def phase_seq_parallel(torch, A, L, smi: str, slice_summary: dict):
+    """Sequence-parallel attention on a world-1 nccl mesh: (a) tiny f32,
+    (b) phase ``slice``'s step with Ulysses and with the ring."""
+    import dataclasses
+
+    import torch.distributed as dist
+
+    from ray_tpu_torch.parallel.mesh import MeshSpec, make_mesh
+    from ray_tpu_torch.tools.profile_train_step import SLICE, train_slice
+
+    gc_collect(torch)
+    t_phase = time.perf_counter()
+    try:
+        mesh = make_mesh(MeshSpec())
+        seq_tiny_f32(torch, mesh, smi)
+        rows = {}
+        for impl in ("ulysses", "ring"):
+            cfg, state, _, batch = train_slice(seed=0)
+            cfg = dataclasses.replace(cfg, attention_impl=impl)
+            step = L.make_train_step(cfg, remat="selective", mesh=mesh)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            A.reset_launch_counts()  # this impl's steps start here
+            losses, ms = [], []
+            for _ in range(2):
+                t0 = time.perf_counter()
+                state, loss = step(state, batch)
+                losses.append(float(loss))
+                torch.cuda.synchronize()
+                ms.append(1e3 * (time.perf_counter() - t0))
+            rows[impl] = {"losses": losses, "step_ms": ms,
+                          "launches": {fn.__name__: fn.launches for fn in A.KERNELS},
+                          "launches_by_route": {fn.__name__: dict(fn.route_launches)
+                                                for fn in A.KERNELS},
+                          "max_memory_allocated_bytes": torch.cuda.max_memory_allocated()}
+            del state, step
+            gc_collect(torch)
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+    ref = slice_summary["losses"][:2]
+    for r in rows.values():
+        r["max_rel_diff_vs_slice"] = max(abs(a - b) / abs(b) for a, b in zip(r["losses"], ref))
+    n_layers = SLICE["n_layers"]
+    emit({"phase": "seq_parallel", "part": "b_7b_bf16",
+          "config": f"LlamaConfig.llama2_7b(n_layers={n_layers}) bf16",
+          "reduced": [f"n_layers 32 -> {n_layers}", "seq axis of size 1 (one card)"],
+          "mesh": "world 1, nccl, no rules", "remat": "selective", "impls": rows,
+          "slice_losses": ref, "slice_step_ms": slice_summary["step_ms"],
+          "seconds": time.perf_counter() - t_phase, "nvidia_smi": smi})
+    uly, ring = rows["ulysses"], rows["ring"]
+    check(uly["max_rel_diff_vs_slice"] <= BF16_LOSS_RTOL,
+          f"Ulysses losses {uly['losses']} vs the slice's {ref}")
+    check(ring["max_rel_diff_vs_slice"] <= RING_LOSS_RTOL,
+          f"ring losses {ring['losses']} vs the slice's {ref}")
+    want = 2 * n_layers
+    for name in uly["launches"]:
+        check(uly["launches"][name] == want, f"Ulysses {name} launched {uly['launches'][name]}")
+        check(uly["launches_by_route"][name] == {"tensor_core": want, "cuda_core": 0},
+              f"Ulysses {name} by route {uly['launches_by_route'][name]}")
+        check(ring["launches"][name] == 0, f"the ring launched {name}: {ring['launches']}")
+
+
 def main() -> int:
     import torch
 
@@ -2655,6 +3021,8 @@ def main() -> int:
     sd_gap_s = phase_serve_deployment(torch, A, L, smi, serve_summary)
     phase_kv_migration(torch, A, L, smi, sd_gap_s)
     phase_train(torch, A, L, smi, slice_summary)
+    phase_moe(torch, A, L, smi, slice_summary)
+    phase_seq_parallel(torch, A, L, smi, slice_summary)
     emit({"phase": "total", "seconds_from_slice": time.perf_counter() - t_start,
           "seconds": time.perf_counter() - T_IMPORT})
     emit({"kernels": [

@@ -17,9 +17,12 @@ step and the paged-KV serving steps.
   (``init_sharded``) and ``forward``/``make_train_step`` pin activations,
   grads and optimizer state to the table, as the JAX step pins them;
 * ``remat="selective"`` saves the matmul outputs and the flash output and
-  recomputes the elementwise tail (the JAX ``_remat_policy``). MoE and
-  sequence-parallel attention are not ported yet and raise
-  ``NotImplementedError``.
+  recomputes the elementwise tail (the JAX ``_remat_policy``);
+* ``moe_experts > 0`` makes every FFN a MoE FFN (``ops.moe``; the experts
+  split over the ``expert`` mesh axis under the rules), and
+  ``attention_impl="ring"|"ulysses"`` runs sequence-parallel attention
+  over the mesh's ``seq`` axis (``ops.ring_attention``; pass the mesh,
+  with or without rules).
 
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``.
 """
@@ -42,7 +45,9 @@ from torch.utils.checkpoint import (
 )
 
 from ray_tpu_torch.ops.attention import flash_attention
-from ray_tpu_torch.parallel.mesh import placement_mesh
+from ray_tpu_torch.ops.moe import MOE_PARAMS, moe_ffn, moe_ffn_sharded, moe_logical_axes
+from ray_tpu_torch.ops.ring_attention import ring_attention_sharded, ulysses_attention_sharded
+from ray_tpu_torch.parallel.mesh import TENSOR, mesh_axis_sizes, placement_mesh
 from ray_tpu_torch.parallel.sharding import (
     constrain,
     constrain_tree,
@@ -66,10 +71,12 @@ class LlamaConfig:
     rope_theta: float = 10000.0
     norm_eps: float = 1e-5
     dtype: Any = torch.float32
-    #: attention impl: "auto" | "pallas" | "xla" (see ``flash_attention``);
-    #: "ring" | "ulysses" are not ported yet
+    #: attention impl: "auto" | "pallas" | "xla" (see ``flash_attention``) or
+    #: "ring" | "ulysses" (sequence-parallel over the mesh's seq axis:
+    #: pass the mesh to ``forward``/``make_train_step``)
     attention_impl: str = "auto"
-    #: >0 makes every MLP a MoE FFN (not ported yet)
+    #: >0 turns every MLP block into a MoE FFN with this many experts
+    #: (expert dim shards over the ``expert`` mesh axis; see ops/moe.py)
     moe_experts: int = 0
     moe_top_k: int = 2
     moe_capacity_factor: float = 1.25
@@ -107,17 +114,6 @@ def resolve_device(device=None) -> torch.device:
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("no CUDA device available; pass device='cpu' to run on the CPU")
     return dev
-
-
-def _check_ported(cfg: LlamaConfig, remat=False) -> None:
-    if cfg.moe_experts > 0:
-        raise NotImplementedError("MoE FFNs are not ported yet (ROADMAP Queue A 6: MoE)")
-    if cfg.attention_impl in ("ring", "ulysses"):
-        raise NotImplementedError(
-            f"attention_impl={cfg.attention_impl!r} is not ported yet "
-            "(ROADMAP Queue A 7: sequence parallelism)"
-        )
-    _remat_policy(remat)
 
 
 # ---------------------------------------------------------------------------
@@ -164,15 +160,17 @@ def param_count(cfg: LlamaConfig) -> int:
     )
 
 
-def _param(shape, cfg: LlamaConfig, device) -> nn.Parameter:
-    return nn.Parameter(torch.empty(shape, dtype=cfg.dtype, device=device))
+def _param(shape, cfg: LlamaConfig, device, dtype=None) -> nn.Parameter:
+    return nn.Parameter(torch.empty(shape, dtype=dtype or cfg.dtype, device=device))
 
 
 class LlamaLayer(nn.Module):
     def __init__(self, cfg: LlamaConfig, device=None):
         super().__init__()
         for name, shape in _layer_shapes(cfg).items():
-            setattr(self, name, _param(shape, cfg, device))
+            # routing logits are precision-sensitive: the router stays f32
+            dtype = torch.float32 if name == "router" else None
+            setattr(self, name, _param(shape, cfg, device, dtype))
 
 
 class Llama(nn.Module):
@@ -181,7 +179,6 @@ class Llama(nn.Module):
 
     def __init__(self, cfg: LlamaConfig, device=None):
         super().__init__()
-        _check_ported(cfg)
         self.cfg = cfg
         self.embed = _param((cfg.vocab_size, cfg.dim), cfg, device)
         self.layers = nn.ModuleList(LlamaLayer(cfg, device) for _ in range(cfg.n_layers))
@@ -195,7 +192,9 @@ class Llama(nn.Module):
 @torch.no_grad()
 def init_params(cfg: LlamaConfig, seed=0, *, device=None) -> Llama:
     """Random weights: normal / sqrt(fan_in) drawn in f32 and cast to
-    ``cfg.dtype``, norms at 1 (the JAX distributions; not its bits).
+    ``cfg.dtype``, norms at 1 (the JAX distributions; not its bits). MoE:
+    the router stays f32, the stacked expert weights ``(E, fan_in,
+    fan_out)`` scale by ``shape[-2]``.
 
     ``seed`` is an int or a ``torch.Generator``; an int seeds a generator on
     the target device, so a seed gives the same weights on every call on
@@ -214,6 +213,8 @@ def init_params(cfg: LlamaConfig, seed=0, *, device=None) -> Llama:
             p = getattr(layer, name)
             if name.endswith("norm"):
                 p.fill_(1.0)
+            elif cfg.moe_experts > 0 and name in MOE_PARAMS:
+                dense(p, shape[-2] if name != "router" else shape[0])
             else:
                 dense(p, shape[0] if len(shape) == 2 else cfg.dim)
     model.final_norm.fill_(1.0)
@@ -223,7 +224,6 @@ def init_params(cfg: LlamaConfig, seed=0, *, device=None) -> Llama:
 
 def logical_axes(cfg: LlamaConfig) -> Dict[str, Any]:
     """Tree (same structure as the JAX params) of logical-axis-name tuples."""
-    _check_ported(cfg)
     layer = {
         "attn_norm": (None,),
         "wq": ("embed", "heads", "head_dim"),
@@ -231,10 +231,15 @@ def logical_axes(cfg: LlamaConfig) -> Dict[str, Any]:
         "wv": ("embed", "kv_heads", "head_dim"),
         "wo": ("heads", "head_dim", "embed"),
         "mlp_norm": (None,),
-        "w_gate": ("embed", "mlp"),
-        "w_up": ("embed", "mlp"),
-        "w_down": ("mlp", "embed"),
     }
+    if cfg.moe_experts > 0:
+        layer.update(moe_logical_axes())
+    else:
+        layer.update({
+            "w_gate": ("embed", "mlp"),
+            "w_up": ("embed", "mlp"),
+            "w_down": ("mlp", "embed"),
+        })
     return {
         "embed": ("vocab", "embed"),
         "layers": [dict(layer) for _ in range(cfg.n_layers)],
@@ -251,9 +256,8 @@ def partition_rules(cfg: LlamaConfig, rules) -> list:
     like AdamW's ``step`` are skipped by the matcher). Specs derive from
     the ``ShardingRules`` table. Overrides go in FRONT (first
     ``re.search`` hit wins)."""
-    _check_ported(cfg)
     sp = rules.spec
-    return [
+    out = [
         # factored second-moment stats (adafactor v_row/v_col) are
         # rank-reduced mirrors named after their param: pinned replicated
         # by name, in front of the param rules
@@ -264,6 +268,14 @@ def partition_rules(cfg: LlamaConfig, rules) -> list:
         (r"(wk|wv)$", sp(("embed", "kv_heads", "head_dim"))),
         (r"wo$", sp(("heads", "head_dim", "embed"))),
         (r"lm_head$", sp(("embed", "vocab"))),
+    ]
+    if cfg.moe_experts > 0:
+        return out + [
+            (r"router$", sp((None, None))),
+            (r"(w_gate|w_up)$", sp(("expert", "embed", "mlp"))),
+            (r"w_down$", sp(("expert", "mlp", "embed"))),
+        ]
+    return out + [
         (r"(w_gate|w_up)$", sp(("embed", "mlp"))),
         (r"w_down$", sp(("mlp", "embed"))),
     ]
@@ -332,7 +344,8 @@ def _to_torch(leaf) -> torch.Tensor:
 
 def params_from_jax(tree) -> Dict[str, torch.Tensor]:
     """A JAX Llama param tree (numpy leaves, or anything ``np.asarray``
-    takes) → a ``Llama`` state dict. Same names, same shapes: no transposes."""
+    takes) → a ``Llama`` state dict. Same names, same shapes (the MoE
+    ``router`` and stacked ``w_gate``/``w_up``/``w_down`` too): no transposes."""
     sd = {"embed": _to_torch(tree["embed"])}
     for i, layer in enumerate(tree["layers"]):
         for name, leaf in layer.items():
@@ -384,12 +397,30 @@ def _replicated_like(x, t):
     return DTensor.from_local(t, mesh, [Replicate()] * mesh.ndim, run_check=False)
 
 
-def _attention(cfg: LlamaConfig, q, k, v):
-    """Causal flash attention on ``[B, S, H, hd]`` q/k/v. DTensor inputs
-    (batch and heads sharded independently, sequence whole) run the kernel
-    on each rank's local shard and come back with q's placements; each
-    rank's GQA groups must be whole."""
+SEQ_PARALLEL = ("ring", "ulysses")
+
+
+def _attention(cfg: LlamaConfig, q, k, v, mesh, kv_repeat: int):
+    """Causal attention on ``[B, S, H, hd]`` q/k/v (K/V at ``H // kv_repeat``
+    heads). Ring/Ulysses run sequence-parallel over ``mesh``
+    (``shard_map_compat``: DTensors, or plain full tensors). Flash on
+    DTensors (batch and heads sharded independently, sequence whole) runs
+    the kernel on each rank's local shard and comes back with q's
+    placements; each rank's GQA groups must be whole."""
     from torch.distributed.tensor import DTensor
+
+    if cfg.attention_impl in SEQ_PARALLEL:
+        if mesh is None:
+            raise ValueError(
+                f"attention_impl={cfg.attention_impl!r} is sequence-parallel: "
+                "pass the mesh to forward()/make_train_step()"
+            )
+        qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+        if cfg.attention_impl == "ring":
+            o = ring_attention_sharded(qt, kt, vt, mesh, causal=True, kv_repeat=kv_repeat)
+        else:
+            o = ulysses_attention_sharded(qt, kt, vt, mesh, causal=True)
+        return o.transpose(1, 2)
 
     def attend(q, k, v):
         o = flash_attention(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
@@ -401,29 +432,50 @@ def _attention(cfg: LlamaConfig, q, k, v):
     for t in (q, k, v):
         if any(p.is_shard(1) for p in t.placements):
             raise ValueError("flash attention needs the whole sequence on each rank "
-                             "(act_seq sharded is ring/Ulysses attention, ROADMAP Queue A 7)")
+                             "(with act_seq sharded, use attention_impl='ring' or 'ulysses')")
     ql, kl, vl = q.to_local(), k.to_local(), v.to_local()
-    if ql.shape[2] % kl.shape[2] or kl.shape[2] * cfg.n_heads != ql.shape[2] * cfg.n_kv_heads:
+    if ql.shape[2] % kl.shape[2] or kl.shape[2] * q.shape[2] != ql.shape[2] * k.shape[2]:
         raise ValueError(
             f"local heads {ql.shape[2]} (q) and {kl.shape[2]} (kv) split a GQA group of "
-            f"{cfg.n_heads} // {cfg.n_kv_heads}: shard heads and kv heads alike")
+            f"{q.shape[2]} // {k.shape[2]}: shard heads and kv heads alike")
     return DTensor.from_local(attend(ql, kl, vl), q.device_mesh, q.placements, run_check=False)
+
+
+def _repeat_heads(x, rep: int):
+    """``[B, S, Hk, hd]`` -> ``[B, S, Hk * rep, hd]``, each kv head repeated
+    ``rep`` times in place (``jnp.repeat``); expand + reshape, which DTensor
+    shards through."""
+    B, S, hk, hd = x.shape
+    return x[:, :, :, None, :].expand(B, S, hk, rep, hd).reshape(B, S, hk * rep, hd)
 
 
 def _attention_block(cfg: LlamaConfig, p, x, cos, sin, mesh=None, rules=None):
     h = rms_norm(x, p.attn_norm, cfg.norm_eps)
+    rep = cfg.n_heads // cfg.n_kv_heads
+    wk, wv, kv_axis = p.wk, p.wv, "act_kv_heads"
+    tensor = mesh_axis_sizes(mesh)[TENSOR] if mesh is not None else 1
+    pre_repeat = rep > 1 and cfg.n_kv_heads % tensor != 0
+    if pre_repeat:
+        # too few KV heads for the tensor axis: K/V's heads are gathered
+        # (the params keep their rule's placements) and repeated to
+        # n_heads, so each rank's GQA groups are whole (the reference's
+        # sequence-parallel pre-repeat, here for every impl)
+        wk, wv = (constrain(w, mesh, rules, ("embed", None, "head_dim")) for w in (wk, wv))
+        kv_axis = "act_heads"
     q = torch.einsum("bsd,dhk->bshk", h, p.wq)
-    k = torch.einsum("bsd,dhk->bshk", h, p.wk)
-    v = torch.einsum("bsd,dhk->bshk", h, p.wv)
+    k = torch.einsum("bsd,dhk->bshk", h, wk)
+    v = torch.einsum("bsd,dhk->bshk", h, wv)
+    if pre_repeat:
+        k, v = _repeat_heads(k, rep), _repeat_heads(v, rep)
     # attention ENTRY pin: q/k/v leave the projection in the head-sharded
     # layout the attention runs on
     q = constrain(q, mesh, rules, ("act_batch", "act_seq", "act_heads", None))
-    k = constrain(k, mesh, rules, ("act_batch", "act_seq", "act_kv_heads", None))
-    v = constrain(v, mesh, rules, ("act_batch", "act_seq", "act_kv_heads", None))
+    k = constrain(k, mesh, rules, ("act_batch", "act_seq", kv_axis, None))
+    v = constrain(v, mesh, rules, ("act_batch", "act_seq", kv_axis, None))
     q = apply_rope(q, cos, sin)
     k = apply_rope(k, cos, sin)
-    # K/V stay at n_kv_heads (GQA in-kernel)
-    o = _attention(cfg, q, k, v)
+    # K/V stay at n_kv_heads unless pre-repeated (GQA in-kernel)
+    o = _attention(cfg, q, k, v, mesh, 1 if pre_repeat else rep)
     # attention EXIT pin; the flash output is what selective remat saves
     o = constrain(o, mesh, rules, ("act_batch", "act_seq", "act_heads", None))
     out = x + torch.einsum("bshk,hkd->bsd", o.to(x.dtype), p.wo)
@@ -431,7 +483,22 @@ def _attention_block(cfg: LlamaConfig, p, x, cos, sin, mesh=None, rules=None):
 
 
 def _mlp_block(cfg: LlamaConfig, p, x, mesh=None, rules=None):
+    """Dense or MoE FFN. Returns ``(x, aux_loss)``; the dense FFN's aux is
+    None (the JAX block's 0.0)."""
     h = rms_norm(x, p.mlp_norm, cfg.norm_eps)
+    if cfg.moe_experts > 0:
+        # entry/exit pins bracket the expert compute, so the MoE FFN keeps
+        # the dense branch's replicated-residual contract; under the rules
+        # the tokens are routed whole (the JAX function's global routing)
+        h = constrain(h, mesh, rules, ("act_batch", "act_seq", "act_embed"))
+        params = {k: getattr(p, k) for k in MOE_PARAMS}
+        kw = dict(top_k=cfg.moe_top_k, capacity_factor=cfg.moe_capacity_factor)
+        if rules is None:
+            out, aux = moe_ffn(params, h, **kw)
+        else:
+            out, aux = moe_ffn_sharded(params, h, mesh, **kw)
+        out = constrain(x + out, mesh, rules, ("act_batch", "act_seq", "act_embed"))
+        return out, aux["aux_loss"]
     gate = torch.einsum("bsd,dm->bsm", h, p.w_gate)
     up = torch.einsum("bsd,dm->bsm", h, p.w_up)
     # Megatron split: the hidden activation shards over tensor, the
@@ -439,7 +506,7 @@ def _mlp_block(cfg: LlamaConfig, p, x, mesh=None, rules=None):
     gate = constrain(gate, mesh, rules, ("act_batch", "act_seq", "act_mlp"))
     up = constrain(up, mesh, rules, ("act_batch", "act_seq", "act_mlp"))
     out = x + torch.einsum("bsm,md->bsd", F.silu(gate) * up, p.w_down)
-    return constrain(out, mesh, rules, ("act_batch", "act_seq", "act_embed"))
+    return constrain(out, mesh, rules, ("act_batch", "act_seq", "act_embed")), None
 
 
 def _block(cfg: LlamaConfig, cos, sin, mesh, rules, x, p):
@@ -481,18 +548,24 @@ def _remat_policy(remat):
     raise ValueError(f"remat must be False, True, 'full', or 'selective'; got {remat!r}")
 
 
-def forward(cfg: LlamaConfig, params: Llama, tokens, *, remat=False, mesh=None, rules=None):
+def forward(cfg: LlamaConfig, params: Llama, tokens, *, remat=False, mesh=None, rules=None,
+            return_aux: bool = False):
     """tokens [B, S] int → logits [B, S, vocab] (f32).
 
-    With ``rules`` (a ``ShardingRules``) AND a mesh, every intermediate is
-    pinned to the table (DTensors throughout; the params must be DTensors,
-    see ``init_sharded``); without them the function is the unconstrained
-    single-device one. ``remat``: False | True/"full" | "selective"
-    (``torch.utils.checkpoint`` per layer; see ``_remat_policy``)."""
-    _check_ported(cfg, remat)
-    if mesh is None or rules is None:
-        mesh = rules = None
+    ``mesh`` is required for the sequence-parallel attention impls
+    ("ring"/"ulysses"), which run over its ``seq`` axis; without ``rules``
+    the rest of the model runs on plain tensors (the full values on every
+    rank), and for the other impls a mesh alone is ignored. With ``rules``
+    (a ``ShardingRules``) AND a mesh, every intermediate is pinned to the
+    table (DTensors throughout; the params must be DTensors, see
+    ``init_sharded``). ``remat``: False | True/"full" | "selective"
+    (``torch.utils.checkpoint`` per layer; see ``_remat_policy``). With
+    ``return_aux`` also returns the summed MoE load-balance loss."""
     context_fn, do_remat = _remat_policy(remat)
+    if mesh is None or rules is None:
+        rules = None
+        if cfg.attention_impl not in SEQ_PARALLEL:
+            mesh = None
     B, S = tokens.shape
     # the lookup reads a replicated table: the all-gather of a sharded
     # table is voluntary (ZeRO-3: params materialize for compute)
@@ -502,30 +575,44 @@ def forward(cfg: LlamaConfig, params: Llama, tokens, *, remat=False, mesh=None, 
     x = constrain(x, mesh, rules, ("act_batch", "act_seq", "act_embed"))
     cos, sin = (_replicated_like(x, t) for t in rope_tables(cfg, S, device=x.device))
     block = functools.partial(_block, cfg, cos, sin, mesh, rules)
+    aux = None
     for p in params.layers:
         if not do_remat:
-            x = block(x, p)
+            x, layer_aux = block(x, p)
         elif context_fn is None:
-            x = checkpoint(block, x, p, use_reentrant=False)
+            x, layer_aux = checkpoint(block, x, p, use_reentrant=False)
         else:
-            x = checkpoint(block, x, p, use_reentrant=False, context_fn=context_fn)
+            x, layer_aux = checkpoint(block, x, p, use_reentrant=False, context_fn=context_fn)
+        if layer_aux is not None:
+            aux = layer_aux if aux is None else aux + layer_aux
     x = rms_norm(x, params.final_norm, cfg.norm_eps)
     logits = torch.einsum("bsd,dv->bsv", x, params.lm_head).float()
-    return constrain(logits, mesh, rules, ("act_batch", "act_seq", "act_vocab"))
+    logits = constrain(logits, mesh, rules, ("act_batch", "act_seq", "act_vocab"))
+    if not return_aux:
+        return logits
+    if aux is None:
+        aux = _replicated_like(x, torch.zeros((), dtype=torch.float32, device=x.device))
+    return logits, aux
 
 
 def next_token_loss(cfg: LlamaConfig, params: Llama, tokens, targets, *, remat=False,
                     mesh=None, rules=None):
-    """Mean next-token NLL (f32 log-softmax over the vocabulary); the MoE
-    aux term of the JAX loss is 0 for the dense FFN, the only one ported.
-    Sharded, the loss is a replicated scalar DTensor."""
-    logits = forward(cfg, params, tokens, remat=remat, mesh=mesh, rules=rules)
+    """Mean next-token NLL (f32 log-softmax over the vocabulary) plus
+    ``moe_aux_loss_coeff`` times the summed MoE aux loss (the dense FFN's
+    is 0, and adding it is skipped). Sharded, the loss is a replicated
+    scalar DTensor."""
+    logits, aux = forward(cfg, params, tokens, remat=remat, mesh=mesh, rules=rules,
+                          return_aux=True)
     if mesh is None or rules is None:
-        return F.cross_entropy(logits.reshape(-1, cfg.vocab_size), targets.reshape(-1).long())
-    targets = constrain(targets, mesh, rules, ("act_batch", "act_seq"))
-    logp = torch.log_softmax(logits, dim=-1)
-    nll = -torch.gather(logp, -1, targets[..., None].long())
-    return constrain(nll.mean(), mesh, rules, ())
+        loss = F.cross_entropy(logits.reshape(-1, cfg.vocab_size), targets.reshape(-1).long())
+    else:
+        targets = constrain(targets, mesh, rules, ("act_batch", "act_seq"))
+        logp = torch.log_softmax(logits, dim=-1)
+        nll = -torch.gather(logp, -1, targets[..., None].long())
+        loss = constrain(nll.mean(), mesh, rules, ())
+    if cfg.moe_experts > 0:
+        loss = loss + cfg.moe_aux_loss_coeff * aux
+    return loss
 
 
 # ---------------------------------------------------------------------------
@@ -577,14 +664,17 @@ def make_train_step(cfg: LlamaConfig, *, remat=False, mesh=None, rules=None):
     its intermediates. The grads leave the backward with the placements
     DTensor's rules give them (partial sums over the batch axes), and
     pinning them to the params' placements is the gradient all-reduce or
-    reduce-scatter. ``remat``: False | True/"full" | "selective"."""
-    _check_ported(cfg, remat)
+    reduce-scatter. Without ``rules``, ``mesh`` serves only the
+    sequence-parallel attention impls (as in the JAX step). ``remat``:
+    False | True/"full" | "selective"."""
+    _remat_policy(remat)
     if mesh is None or rules is None:
 
         def step(state, batch):
             model, opt = state
             opt.zero_grad(set_to_none=True)
-            loss = next_token_loss(cfg, model, batch["tokens"], batch["targets"], remat=remat)
+            loss = next_token_loss(cfg, model, batch["tokens"], batch["targets"], remat=remat,
+                                   mesh=mesh)
             loss.backward()
             opt.step()
             return (model, opt), loss.detach()

@@ -210,3 +210,42 @@ def slice_topology_mesh(num_slices: int, per_slice_spec: MeshSpec, devices=None)
         stage=spec.stage,
     )
     return make_mesh(merged, devices)
+
+
+def shard_map_compat(f, *, mesh, in_specs, out_specs):
+    """``shard_map`` for the port: returns ``fn(*args)``, which places each
+    argument by its ``in_specs`` entry (a ``PartitionSpec`` over ``mesh``'s
+    axis names), calls ``f`` on the local shards as
+    ``f(*local_args, groups={axis name: process group})`` and places each of
+    ``f``'s local outputs by its ``out_specs`` entry (one spec for one
+    output, a tuple of specs for several).
+
+    An argument is a DTensor (redistributed to its spec) or a plain tensor
+    holding the full value on every rank (read as replicated). When every
+    argument is plain the outputs come back as plain full tensors, else as
+    DTensors. ``redistribute`` and ``from_local``/``to_local`` are
+    differentiable, so gradients flow through; the collectives ``f`` issues
+    on ``groups`` are its own (the JAX function binds axis names instead)."""
+    from torch.distributed.tensor import DTensor, Replicate
+
+    from ray_tpu_torch.parallel.sharding import PartitionSpec, spec_placements
+
+    def fn(*args):
+        pmesh = placement_mesh(mesh)
+        plain = not any(isinstance(a, DTensor) for a in args)
+        local = []
+        for a, spec in zip(args, in_specs, strict=True):
+            if not isinstance(a, DTensor):
+                a = DTensor.from_local(a, pmesh, [Replicate()] * pmesh.ndim, run_check=False)
+            local.append(a.redistribute(pmesh, spec_placements(mesh, spec)).to_local())
+        groups = {name: mesh.get_group(name) for name in mesh.mesh_dim_names}
+        outs = f(*local, groups=groups)
+        single = isinstance(out_specs, PartitionSpec)
+        placed = []
+        for o, spec in zip((outs,) if single else outs, (out_specs,) if single else out_specs,
+                           strict=True):
+            o = DTensor.from_local(o, pmesh, spec_placements(mesh, spec), run_check=False)
+            placed.append(o.full_tensor() if plain else o)
+        return placed[0] if single else tuple(placed)
+
+    return fn

@@ -40,11 +40,16 @@ def train_slice(seed: int = 0):
     cfg = L.LlamaConfig.llama2_7b(n_layers=SLICE["n_layers"])
     model = L.init_params(cfg, seed)
     opt = L.adamw(SLICE["lr"])(model.parameters())
+    return cfg, (model, opt), L.make_train_step(cfg), slice_batch(seed, cfg.vocab_size)
+
+
+def slice_batch(seed: int = 0, vocab_size: int = 32000):
+    """The slice's token batch on the card: ``SLICE["batch"]`` random
+    sequences of ``SLICE["seq"] + 1`` tokens from ``seed + 3``."""
     g = torch.Generator(device="cuda").manual_seed(seed + 3)
-    seqs = torch.randint(0, cfg.vocab_size, (SLICE["batch"], SLICE["seq"] + 1), generator=g,
+    seqs = torch.randint(0, vocab_size, (SLICE["batch"], SLICE["seq"] + 1), generator=g,
                          device="cuda")
-    batch = {"tokens": seqs[:, :-1], "targets": seqs[:, 1:]}
-    return cfg, (model, opt), L.make_train_step(cfg), batch
+    return {"tokens": seqs[:, :-1], "targets": seqs[:, 1:]}
 
 
 def trainer_step(seed: int = 0):

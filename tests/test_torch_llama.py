@@ -230,9 +230,10 @@ def test_model_rms_norm_and_interleaved_rope_match_jax(cfgs):
 
 @pytest.mark.parametrize("case", ["selective", "mesh", "ring", "ulysses", "moe"])
 def test_unported_options_raise(case):
-    """MoE and sequence-parallel attention raise, naming their ROADMAP
-    item; selective remat and a mesh are ported and build a step, and an
-    unknown remat mode raises as the JAX step does."""
+    """Every option of the flagship step builds: selective remat, a mesh,
+    ring and Ulysses attention (which, as in JAX, raise ``ValueError``
+    without a mesh when they run) and MoE FFNs (whose params initialise,
+    the router in f32); an unknown remat mode raises as the JAX step does."""
     cfg = tl.LlamaConfig.tiny()
     if case == "selective":
         assert callable(tl.make_train_step(cfg, remat="selective"))
@@ -242,11 +243,17 @@ def test_unported_options_raise(case):
         # a mesh alone (no rules) is the unconstrained step, as in JAX
         assert callable(tl.make_train_step(cfg, mesh=object()))
     elif case in ("ring", "ulysses"):
-        with pytest.raises(NotImplementedError, match="ROADMAP Queue A 7"):
-            tl.make_train_step(tl.LlamaConfig.tiny(attention_impl=case))
+        cfg = tl.LlamaConfig.tiny(attention_impl=case)
+        assert callable(tl.make_train_step(cfg))
+        with pytest.raises(ValueError, match="sequence-parallel"):
+            tl.forward(cfg, tl.init_params(cfg, 0, device="cpu"),
+                       torch.zeros((1, 16), dtype=torch.long))
     else:
-        with pytest.raises(NotImplementedError, match="ROADMAP Queue A 6"):
-            tl.init_params(tl.LlamaConfig.tiny(moe_experts=4), 0, device="cpu")
+        cfg = tl.LlamaConfig.tiny(moe_experts=4)
+        model = tl.init_params(cfg, 0, device="cpu")
+        assert tuple(model.layers[0].w_gate.shape) == (4, cfg.dim, cfg.mlp_hidden)
+        assert model.layers[0].router.dtype == torch.float32
+        assert sum(p.numel() for p in model.parameters()) == tl.param_count(cfg)
 
 
 def test_entry_runs_tiny_forward_on_cpu():

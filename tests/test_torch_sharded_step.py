@@ -3,13 +3,23 @@ rules=, remat="selective")``) on gloo groups of CPU processes, against the
 port's unsharded step and the JAX package's unsharded step on the same
 params and batch.
 
-Groups: 2 processes as ``data=2`` under ddp, ``fsdp=2`` under fsdp and
-``tensor=2`` under tp, and 4 processes as ``(data=2, tensor=2)`` under tp,
-where DTensor nests the batch over two mesh dims. Each group is started
+Groups: 2 processes as ``data=2`` under ddp, ``fsdp=2`` under fsdp,
+``tensor=2`` under tp, and ``seq=2`` under tp with ring and with Ulysses
+attention (the sequence sharded over ``seq``); 4 processes as ``(data=2,
+tensor=2)`` under tp, where DTensor nests the batch over two mesh dims, as
+``tensor=4`` under tp, where the tiny config's 2 KV heads are fewer than
+the tensor ranks (K/V are gathered and repeated to the 4 q heads), and as
+``(data=2, expert=2)`` under tp on the tiny MoE config with capacity
+factor 0.5, so that tokens drop and routing each rank's tokens apart (its
+own capacity, its own arrival order) would show. Each group is started
 once (a module-scoped fixture): the file runs itself as each rank
 (``python tests/test_torch_sharded_step.py --worker ...``), loads the
-JAX-initialised tiny Llama (``params_from_jax``), shards it, runs 3 steps
-per case and writes its readings; rank 0's readings come back here.
+JAX-initialised tiny Llama of each case's config (``params_from_jax``),
+shards it, runs 3 steps per case and writes its readings; rank 0's
+readings come back here (one group of each size a test run: the xdist
+workers share its readings). The unsharded references run each case's config
+with its attention impl dropped (ring and Ulysses compute the same
+function as flash attention).
 
 Bounds: losses rtol 2e-4, the bound of the JAX package's own sharded-step
 test (``test_sharding_rules.py``). The first step's gradients, gathered,
@@ -37,13 +47,24 @@ import torch
 
 ROOT = Path(__file__).resolve().parent.parent
 STEPS, LR = 3, 1e-3
-#: (case id, world size, mesh axes, rules table)
+MOE = (("moe_experts", 4), ("moe_capacity_factor", 0.5))
+#: (case id, world size, mesh axes, rules table, LlamaConfig.tiny overrides)
 CASES = (
-    ("data2-ddp", 2, {"data": 2}, "ddp"),
-    ("fsdp2-fsdp", 2, {"fsdp": 2}, "fsdp"),
-    ("tensor2-tp", 2, {"tensor": 2}, "tp"),
-    ("data2-tensor2-tp", 4, {"data": 2, "tensor": 2}, "tp"),
+    ("data2-ddp", 2, {"data": 2}, "ddp", ()),
+    ("fsdp2-fsdp", 2, {"fsdp": 2}, "fsdp", ()),
+    ("tensor2-tp", 2, {"tensor": 2}, "tp", ()),
+    ("seq2-tp-ring", 2, {"seq": 2}, "tp", (("attention_impl", "ring"),)),
+    ("seq2-tp-ulysses", 2, {"seq": 2}, "tp", (("attention_impl", "ulysses"),)),
+    ("data2-tensor2-tp", 4, {"data": 2, "tensor": 2}, "tp", ()),
+    ("tensor4-tp", 4, {"tensor": 4}, "tp", ()),
+    ("data2-expert2-tp-moe", 4, {"data": 2, "expert": 2}, "tp", MOE),
 )
+
+
+def _params_key(overrides) -> tuple:
+    """The config overrides that change the params and the function: all
+    but the attention impl."""
+    return tuple(kv for kv in overrides if kv[0] != "attention_impl")
 
 
 def _worker(rank: int, world: int, port: int, inputs: str, out: str) -> None:
@@ -59,16 +80,16 @@ def _worker(rank: int, world: int, port: int, inputs: str, out: str) -> None:
         data = pickle.load(f)
     dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}", rank=rank,
                             world_size=world)
-    cfg = tl.LlamaConfig.tiny()
     batch = {k: torch.from_numpy(v) for k, v in data["batch"].items()}
     readings = {}
-    for case, size, axes, table in CASES:
+    for case, size, axes, table, overrides in CASES:
         if size != world:
             continue
+        cfg = tl.LlamaConfig.tiny(**dict(overrides))
         mesh = tmesh.make_mesh(tmesh.MeshSpec(**axes), "cpu")
         rules = getattr(tsh, f"{table}_rules")()
         model = tl.init_params(cfg, 0, device="cpu")
-        model.load_state_dict(tl.params_from_jax(data["params"]))
+        model.load_state_dict(tl.params_from_jax(data["params"][_params_key(overrides)]))
         tl.shard_model(cfg, model, mesh, rules)
         state = (model, tl.adamw(LR)(model.parameters()))
         loss = tl.next_token_loss(cfg, model, batch["tokens"], batch["targets"],
@@ -110,22 +131,45 @@ def _free_port() -> int:
 
 @pytest.fixture(scope="module")
 def inputs(tmp_path_factory):
-    """The JAX-initialised tiny params (numpy) and one seeded batch."""
+    """The JAX-initialised tiny params (numpy) of each case's config, and one
+    seeded batch."""
     import jax
 
     from ray_tpu.models import llama as jl
 
-    params = jl.init_params(jl.LlamaConfig.tiny(), jax.random.PRNGKey(0))
+    params = {}
+    for key in {_params_key(c[4]) for c in CASES}:
+        tree = jl.init_params(jl.LlamaConfig.tiny(**dict(key)), jax.random.PRNGKey(0))
+        params[key] = jax.tree_util.tree_map(np.asarray, tree)
     toks = np.random.RandomState(1).randint(0, 256, size=(4, 17)).astype(np.int64)
-    data = {"params": jax.tree_util.tree_map(np.asarray, params),
-            "batch": {"tokens": toks[:, :-1], "targets": toks[:, 1:]}}
+    data = {"params": params, "batch": {"tokens": toks[:, :-1], "targets": toks[:, 1:]}}
     path = tmp_path_factory.mktemp("sharded_step") / "inputs.pkl"
     with open(path, "wb") as f:
         pickle.dump(data, f)
     return str(path), data
 
 
-def _run_group(world: int, inputs_path: str, out: Path) -> dict:
+def _once_per_run(request, tmp_path_factory, name: str, run) -> dict:
+    """The readings ``run(out)`` writes to ``out``, made once per test run:
+    under xdist the workers share the file of the first worker to take the
+    lock (the inputs are seeded, so each worker's group would read the
+    same), so one group of processes runs on the box, not one per worker."""
+    import fcntl
+
+    if hasattr(request.config, "workerinput"):
+        root = tmp_path_factory.getbasetemp().parent
+    else:
+        root = tmp_path_factory.mktemp(name)
+    out = root / f"{name}-readings.pkl"
+    with open(root / f"{name}.lock", "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        if not out.exists():
+            run(out)
+    with open(out, "rb") as f:
+        return pickle.load(f)
+
+
+def _run_group(world: int, inputs_path: str, out: Path) -> None:
     port = _free_port()
     env = dict(os.environ, OMP_NUM_THREADS="1", PYTHONPATH=str(ROOT))
     procs = [subprocess.Popen([sys.executable, __file__, "--worker", str(r), str(world), str(port),
@@ -143,18 +187,18 @@ def _run_group(world: int, inputs_path: str, out: Path) -> dict:
                 p.wait()
     codes = [p.returncode for p in procs]
     assert codes == [0] * world, "\n".join(logs)[-4000:]
-    with open(out, "rb") as f:
-        return pickle.load(f)
 
 
 @pytest.fixture(scope="module")
-def world2(inputs, tmp_path_factory):
-    return _run_group(2, inputs[0], tmp_path_factory.mktemp("world2") / "readings.pkl")
+def world2(request, inputs, tmp_path_factory):
+    return _once_per_run(request, tmp_path_factory, "world2",
+                         lambda out: _run_group(2, inputs[0], out))
 
 
 @pytest.fixture(scope="module")
-def world4(inputs, tmp_path_factory):
-    return _run_group(4, inputs[0], tmp_path_factory.mktemp("world4") / "readings.pkl")
+def world4(request, inputs, tmp_path_factory):
+    return _once_per_run(request, tmp_path_factory, "world4",
+                         lambda out: _run_group(4, inputs[0], out))
 
 
 @pytest.fixture
@@ -168,8 +212,28 @@ def readings(request):
 
 
 @pytest.fixture(scope="module")
-def references(inputs):
-    """3 steps of the port's unsharded step and of the JAX step."""
+def reference_runs(inputs):
+    """3 steps of the port's unsharded step and of the JAX step, per config
+    (computed once each, on first use)."""
+    cache: dict = {}
+
+    def get(key):
+        if key not in cache:
+            cache[key] = _references(inputs[1], key)
+        return cache[key]
+
+    return get
+
+
+@pytest.fixture
+def references(request, reference_runs):
+    """The unsharded references of the test's case's config."""
+    callspec = getattr(request.node, "callspec", None)
+    case = callspec.params["case"] if callspec else "fsdp2-fsdp"
+    return reference_runs(_params_key({c[0]: c[4] for c in CASES}[case]))
+
+
+def _references(data, key) -> dict:
     import jax
     import jax.numpy as jnp
     import optax
@@ -177,10 +241,9 @@ def references(inputs):
     from ray_tpu.models import llama as jl
     from ray_tpu_torch.models import llama as tl
 
-    _, data = inputs
-    cfg = tl.LlamaConfig.tiny()
+    cfg = tl.LlamaConfig.tiny(**dict(key))
     model = tl.init_params(cfg, 0, device="cpu")
-    model.load_state_dict(tl.params_from_jax(data["params"]))
+    model.load_state_dict(tl.params_from_jax(data["params"][key]))
     state = (model, tl.adamw(LR)(model.parameters()))
     step = tl.make_train_step(cfg)
     batch = {k: torch.from_numpy(v) for k, v in data["batch"].items()}
@@ -190,9 +253,9 @@ def references(inputs):
     for _ in range(STEPS):
         state, loss = step(state, batch)
         port_losses.append(float(loss))
-    jcfg = jl.LlamaConfig.tiny()
+    jcfg = jl.LlamaConfig.tiny(**dict(key))
     opt = optax.adamw(LR)
-    jparams = jax.tree_util.tree_map(jnp.asarray, data["params"])
+    jparams = jax.tree_util.tree_map(jnp.asarray, data["params"][key])
     jstate = (jparams, opt.init(jparams))
     jstep = jl.make_train_step(jcfg, opt, donate=False)
     jbatch = {k: jnp.asarray(v, jnp.int32) for k, v in data["batch"].items()}
@@ -258,7 +321,7 @@ def test_param_placements_follow_the_jax_rule(case, readings):
     from ray_tpu.parallel import sharding as jsh
 
     table = {c[0]: c[3] for c in CASES}[case]
-    jcfg = jl.LlamaConfig.tiny()
+    jcfg = jl.LlamaConfig.tiny(**dict(_params_key({c[0]: c[4] for c in CASES}[case])))
     jparams = jl.init_params(jcfg, jax.random.PRNGKey(0))
     specs = jsh.match_partition_rules(
         jl.partition_rules(jcfg, getattr(jsh, f"{table}_rules")()), jparams)
