@@ -219,6 +219,37 @@ JSON line on stdout:
    each kernel launched n_layers times a step on the tensor cores; the
    ring's within 2^-6 (its chunks are f32 einsums) and no kernel launched;
    each step ms printed beside ``slice``'s.
+14. rl (imports no ``gymnasium``: the card's machine has none): (a)
+   ``apply_cnn_q`` and ``apply_cnn_policy`` at Atari width (seeded uint8
+   frames ``[256, 84, 84, 4]``, 6 actions; XLA's asymmetric SAME padding)
+   and the MLP policy and Q nets at CartPole's 4-dim obs, on the card
+   against the same functions on the CPU (f32, TF32 off, within 1e-5 of
+   the largest reference value), the Q-net with bf16 params on bf16
+   frames against f32 (relative RMS within 2^-6), and the Q-net's
+   images/s in f32 and bf16 beside the bound; (b) the learners on the card
+   against the same learners on the CPU, f32 with TF32 off, each update
+   held on its own (the CPU learner put at the card's state before it):
+   32 DQN double-Q updates of the CNN Q-net at 84x84x4, batch 64 from a
+   ``ReplayBuffer`` of seeded transitions, with two target syncs inside
+   the run; one PPO iteration's updates (4 epochs over 512 rows in
+   minibatches of 256); 4 IMPALA V-trace updates on ``[8, 64]`` batches;
+   stats within 1e-4 relative and params within 5% of lr, update ms
+   printed; IMPALA's ``compute_single_action`` runs its policy on the
+   card for the card's learner, with the CPU learner's action; (c) the port's cluster (``ray_tpu_torch.init(num_cpus=4)``,
+   which must detect the card) and a one-learner ``LearnerGroup`` with
+   ``resources_per_learner={"GPU": 1}``: the learner holds the GPU, sees
+   ``cuda`` through ``CUDA_VISIBLE_DEVICES="0"``, and its IMPALA stats on
+   (b)'s batches equal (b)'s card run within 1e-6 relative; the GPU comes
+   back after, and no process of the cluster survives shutdown.
+15. pipeline: ``pipeline_apply`` over phase ``slice``'s config, params
+   and batch on a world-1 nccl mesh (stage axis 1: the whole schedule runs,
+   its shifts copies on the one rank, its sum an all-reduce over it), all layers in the one stage, the batch as 2 microbatches of ``[1, 2048, 4096]``: the forward
+   equal to the layer loop on the same microbatches and within 2^-8
+   relative RMS of the loop over the whole batch; the layer gradients of
+   a seeded cotangent within 2^-8 relative norm of both loops'; the
+   forward kernel launched n_layers x 2 times in the forward, dq and dk/dv
+   n_layers x 2 each in the backward, all on the tensor cores; its ms
+   printed beside the loops'.
    Then the script's total seconds.
 
 Then the ``kernels`` summary line, the ``nvidia-smi`` line, and last the
@@ -2991,6 +3022,445 @@ def phase_seq_parallel(torch, A, L, smi: str, slice_summary: dict):
         check(ring["launches"][name] == 0, f"the ring launched {name}: {ring['launches']}")
 
 
+# ---------------------------------------------------------------------------
+# 14. rl
+
+
+#: the CNN's batch of frames (bench.py's cnn_forward_images_per_s shape)
+#: and Atari's 6 actions; CartPole's obs and actions for the MLP nets
+RL_FRAMES, RL_ACTIONS, RL_OBS_DIM, RL_MLP_ACTIONS = (256, 84, 84, 4), 6, 4, 2
+#: the card's f32 forward (TF32 off) against the CPU's: max |err| over max
+#: |ref|; the bf16 params' (bf16 frames) against f32: relative RMS
+RL_F32_REL, RL_BF16_REL_RMS = 1e-5, 2.0 ** -6
+#: one update on the card against the same update on the CPU from the
+#: card's state: stats relative, params absolute as a fraction of lr (the
+#: bounds of tests/test_torch_rl.py against the JAX package)
+RL_STATS_RTOL, RL_PARAMS_LR_FRACTION = 1e-4, 0.05
+#: the learner gang on the card against this process's card run
+RL_GANG_RTOL = 1e-6
+
+
+def rel_err(a, b) -> float:
+    return float((a.float() - b.float()).abs().max() / b.float().abs().max())
+
+
+def rel_rms(a, b) -> float:
+    a, b = a.float(), b.float()
+    return float((a - b).pow(2).mean().sqrt() / b.pow(2).mean().sqrt())
+
+
+def cnn_work(params, frames_shape, frame_bytes: int, param_bytes: int) -> tuple:
+    """The Q-net forward's matmul FLOPs (convs at their SAME output sizes,
+    the dense layer and the head) and bytes (frames and params read once,
+    q-values written once) for one batch; and its param count."""
+    from ray_tpu_torch.rl.models import DEFAULT_CONV, tree_leaves
+
+    n, h, w, _c = frames_shape
+    macs = 0
+    for layer, (_ch, _k, s) in zip(params["conv"], DEFAULT_CONV):
+        h, w = -(-h // s), -(-w // s)
+        k, _, cin, cout = layer["w"].shape
+        macs += h * w * cout * k * k * cin
+    macs += sum(params[name]["w"].numel() for name in ("dense", "q"))
+    n_params = sum(t.numel() for t in tree_leaves(params))
+    nbytes = (math.prod(frames_shape) * frame_bytes + n_params * param_bytes
+              + n * params["q"]["w"].shape[1] * param_bytes)
+    return 2 * macs * n, nbytes, n_params
+
+
+def rl_forward(torch, K, smi):
+    """(a) the CNN Q-net and policy and the MLP nets on the card against the
+    same functions on the CPU (f32), bf16 params against f32, and the
+    Q-net's images/s beside the bound."""
+    from ray_tpu_torch.rl import models as M
+
+    g = torch.Generator().manual_seed(3)
+    qnet = M.init_cnn(g, RL_FRAMES[1:], RL_ACTIONS)
+    pnet = M.init_cnn(g, RL_FRAMES[1:], RL_ACTIONS, heads=("pi", "vf"))
+    mlp_pi = M.init_mlp_policy(g, RL_OBS_DIM, RL_MLP_ACTIONS)
+    mlp_q = M.init_mlp_q(g, RL_OBS_DIM, RL_MLP_ACTIONS)
+    frames = torch.randint(0, 256, RL_FRAMES, generator=torch.Generator().manual_seed(4),
+                           dtype=torch.uint8)
+    obs = torch.randn((RL_FRAMES[0], RL_OBS_DIM), generator=torch.Generator().manual_seed(5))
+    card = lambda tree, dtype=None: M.tree_map(lambda t: t.to("cuda", dtype), tree)
+    errs = {}
+    with torch.no_grad():
+        for name, fn, params, x in (("cnn_q", M.apply_cnn_q, qnet, frames),
+                                    ("cnn_policy", M.apply_cnn_policy, pnet, frames),
+                                    ("mlp_policy", M.apply_mlp_policy, mlp_pi, obs),
+                                    ("mlp_q", M.apply_mlp_q, mlp_q, obs)):
+            ref, got = fn(params, x), fn(card(params), x.cuda())
+            for i, (r, o) in enumerate(zip(*((t,) if torch.is_tensor(t) else t
+                                             for t in (ref, got)))):
+                check(o.is_cuda and o.shape == r.shape and bool(torch.isfinite(o).all()),
+                      f"{name} output {i} on the card, finite, of shape {tuple(r.shape)}")
+                errs[f"{name}/{i}"] = rel_err(o.cpu(), r)
+        q_dev, frames_dev = card(qnet), frames.cuda()
+        q32 = M.apply_cnn_q(q_dev, frames_dev)
+        q_bf = card(qnet, torch.bfloat16)
+        frames_bf = (frames_dev.float() / 255.0).to(torch.bfloat16)  # bench.py's bf16 frames
+        bf_rms = rel_rms(M.apply_cnn_q(q_bf, frames_bf), q32)
+        times = {"float32": K.time_ms(lambda: M.apply_cnn_q(q_dev, frames_dev)),
+                 "bfloat16": K.time_ms(lambda: M.apply_cnn_q(q_bf, frames_bf))}
+    n = RL_FRAMES[0]
+    rows = {}
+    for dtype, ms in times.items():
+        esz = 4 if dtype == "float32" else 2
+        flops, nbytes, n_params = cnn_work(qnet, RL_FRAMES, 1 if esz == 4 else 2, esz)
+        t_ops, t_bytes = flops / PEAK_FLOPS[dtype], nbytes / PEAK_BYTES
+        bound = 1e3 * max(t_ops, t_bytes)
+        rows[dtype] = {"ms": ms, "images_per_s": n / ms * 1e3, "bound_ms": bound,
+                       "bound_images_per_s": n / bound * 1e3,
+                       "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+                       "flops": flops, "bytes": nbytes,
+                       "frames": "uint8" if esz == 4 else "bfloat16 (uint8 / 255)"}
+    emit({"phase": "rl", "part": "a_forward", "frames": list(RL_FRAMES), "actions": RL_ACTIONS,
+          "cnn_params": n_params, "max_rel_err_vs_cpu": errs, "tol": RL_F32_REL,
+          "bf16_rel_rms_vs_f32": bf_rms, "bf16_tol": RL_BF16_REL_RMS, "cnn_q": rows,
+          "nvidia_smi": smi})
+    for k, e in errs.items():
+        check(e <= RL_F32_REL, f"{k}: card against CPU {e} > {RL_F32_REL}")
+    check(bf_rms <= RL_BF16_REL_RMS, f"bf16 CNN against f32: {bf_rms}")
+
+
+def lockstep(torch, card, cpu, state_of, step, batches, lr):
+    """Each batch's update on the card learner, which runs on its own, and
+    on the CPU learner, put at the card's state before every update (Adam
+    turns rounding-level gradient differences on near-zero gradients into
+    steps apart by percents of lr, which compound: each update is held on
+    its own). Returns the card's stats, each update's ms and the worst
+    stats and params differences."""
+    from ray_tpu_torch.rl.models import tree_leaves
+    from ray_tpu_torch.rl.utils import load_state_, state_to_host
+
+    stats, ms, worst_stat, worst_param = [], [], 0.0, 0.0
+    for b in batches:
+        load_state_(state_of(cpu), state_to_host(state_of(card)))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        s = step(card, b)  # floats: waits for the update
+        ms.append(1e3 * (time.perf_counter() - t0))
+        ref = step(cpu, b)
+        check(sorted(s) == sorted(ref) and all(math.isfinite(v) for v in s.values()),
+              f"card stats {s} finite, with the CPU's keys {sorted(ref)}")
+        worst_stat = max([worst_stat] + [abs(s[k] - ref[k]) / abs(ref[k]) for k in s])
+        pairs = zip(tree_leaves(state_of(card)[0]), tree_leaves(state_of(cpu)[0]))
+        worst_param = max([worst_param] + [float((a.detach().cpu() - b_.detach()).abs().max())
+                                            for a, b_ in pairs])
+        stats.append(s)
+    return stats, ms, {"stats_max_rel_diff": worst_stat, "params_max_abs_diff_over_lr":
+                       worst_param / lr}
+
+
+def rl_learner(torch, params_cpu, device, lr, **fields):
+    """A learner's state on ``device`` from the same CPU params (the
+    algorithms' own ``on_device`` and ``adam``), with ``fields`` beside."""
+    import types
+
+    from ray_tpu_torch.rl.utils import adam, on_device
+
+    params = on_device(params_cpu, device)
+    return types.SimpleNamespace(device=torch.device(device), params=params,
+                                 optimizer=adam(params, lr), **fields)
+
+
+def rl_learners(torch, smi):
+    """(b) the DQN (CNN at 84x84x4), PPO and IMPALA updates on the card,
+    each held update by update against the CPU. Returns IMPALA's config,
+    batches and card stats for (c)."""
+    import types
+
+    import numpy as np
+
+    from ray_tpu_torch.rl import dqn as D
+    from ray_tpu_torch.rl import impala as I
+    from ray_tpu_torch.rl import models as M
+    from ray_tpu_torch.rl import ppo as P
+    from ray_tpu_torch.rl import utils as U
+    from ray_tpu_torch.rl.replay import ReplayBuffer
+    from ray_tpu_torch.rl.utils import clone_params
+
+    rs = np.random.RandomState(6)
+    out = {}
+    # DQN: DQNConfig's defaults (train_batch_size 64, 32 updates an
+    # iteration), a target sync every 16 updates so one falls inside the run
+    dcfg = D.DQNConfig(model="cnn_q", target_update_freq=16)
+    buf = ReplayBuffer(dcfg.buffer_capacity, seed=dcfg.seed)
+    n = 1024
+    buf.add_batch({"obs": rs.randint(0, 256, (n, *RL_FRAMES[1:])).astype(np.uint8),
+                   "actions": rs.randint(0, RL_ACTIONS, n).astype(np.int64),
+                   "rewards": rs.randn(n).astype(np.float32),
+                   "next_obs": rs.randint(0, 256, (n, *RL_FRAMES[1:])).astype(np.uint8),
+                   "dones": rs.rand(n) < 0.1})
+    batches = [buf.sample(dcfg.train_batch_size) for _ in range(dcfg.updates_per_iteration)]
+    qnet = M.init_cnn(torch.Generator().manual_seed(dcfg.seed), RL_FRAMES[1:], RL_ACTIONS)
+
+    def dqn(device):
+        lrn = rl_learner(torch, qnet, device, dcfg.lr, config=dcfg, gradient_steps=0)
+        lrn.target_params = clone_params(lrn.params)
+        lrn._apply = types.MethodType(D.DQN._apply, lrn)
+        lrn._update = D.DQN._make_update(lrn)
+        return lrn
+
+    card, cpu = dqn("cuda"), dqn("cpu")
+    step = lambda lrn, b: {k: float(v) for k, v in D.DQN.learn(lrn, b).items()}
+    stats, ms, diff = lockstep(torch, card, cpu, lambda l: (l.params, l.target_params,
+                                                             l.optimizer), step, batches, dcfg.lr)
+    syncs = card.gradient_steps // dcfg.target_update_freq
+    out["dqn"] = {"model": "cnn_q 84x84x4", "updates": len(batches),
+                  "batch": dcfg.train_batch_size, "target_syncs": syncs, "update_ms": ms,
+                  "losses": [s["loss"] for s in stats], **diff}
+    # PPO: one iteration's updates, 4 epochs over 512 rows in minibatches of 256
+    pcfg = P.PPOConfig(num_epochs=4, minibatch_size=256)
+    rows = 512
+    rollout = (rs.randn(rows, RL_OBS_DIM).astype(np.float32),
+               rs.randint(0, RL_MLP_ACTIONS, rows).astype(np.int64),
+               (np.log(0.5) + 0.1 * rs.randn(rows)).astype(np.float32),
+               rs.randn(rows).astype(np.float32), rs.randn(rows).astype(np.float32))
+    pbatches = list(P.PPO._batches(*rollout, pcfg, iteration=0))
+    pnet = M.init_mlp_policy(torch.Generator().manual_seed(pcfg.seed), RL_OBS_DIM,
+                             RL_MLP_ACTIONS, pcfg.hidden)
+    update = P.PPO._make_update(types.SimpleNamespace(config=pcfg))
+
+    def ppo_step(lrn, b):
+        b = {k: torch.as_tensor(v, device=lrn.device) for k, v in b.items()}
+        return {k: float(v) for k, v in update(lrn.params, lrn.optimizer, b).items()}
+
+    card, cpu = (rl_learner(torch, pnet, d, pcfg.lr) for d in ("cuda", "cpu"))
+    stats, ms, diff = lockstep(torch, card, cpu, lambda l: (l.params, l.optimizer), ppo_step,
+                               pbatches, pcfg.lr)
+    out["ppo"] = {"updates": len(pbatches), "rows": rows, "minibatch": pcfg.minibatch_size,
+                  "update_ms": ms, "losses": [s["loss"] for s in stats], **diff}
+    # IMPALA: 4 V-trace updates on [8 envs, 64 steps] batches
+    icfg = I.IMPALAConfig()
+    B, T = 8, 64
+    ibatches = [{"obs": rs.randn(B, T, RL_OBS_DIM).astype(np.float32),
+                 "actions": rs.randint(0, RL_MLP_ACTIONS, (B, T)).astype(np.int32),
+                 "behavior_logp": (np.log(0.5) + 0.1 * rs.randn(B, T)).astype(np.float32),
+                 "rewards": rs.rand(B, T).astype(np.float32),
+                 "dones": (rs.rand(B, T) < 0.05).astype(np.float32),
+                 "bootstrap": rs.randn(B).astype(np.float32)} for _ in range(4)]
+    init_state, vtrace_update = I._make_vtrace_update(icfg, RL_OBS_DIM, RL_MLP_ACTIONS)
+
+    def impala(device):
+        return types.SimpleNamespace(_group=None, device=torch.device(device),
+                                     _state=init_state(torch.device(device)),
+                                     _update=vtrace_update)
+
+    card, cpu = impala("cuda"), impala("cpu")
+    stats, ms, diff = lockstep(torch, card, cpu, lambda l: l._state, I.IMPALA.learn, ibatches,
+                               icfg.lr)
+    out["impala"] = {"updates": len(ibatches), "batch": [B, T], "update_ms": ms,
+                     "losses": [s["loss"] for s in stats], **diff}
+    # evaluation on the learner's own params: the policy's input device is
+    # recorded around greedy_action's call
+    seen = []
+    policy = U.apply_mlp_policy
+    U.apply_mlp_policy = lambda p, o: (seen.append(o.device.type), policy(p, o))[1]
+    try:
+        obs = rs.randn(RL_OBS_DIM).astype(np.float32)
+        actions = [I.IMPALA.compute_single_action(lrn, obs) for lrn in (card, cpu)]
+    finally:
+        U.apply_mlp_policy = policy
+    out["impala"]["evaluation"] = {"devices": seen, "actions": actions}
+    emit({"phase": "rl", "part": "b_learners", "dtype": "float32 (TF32 off)",
+          "stats_rtol": RL_STATS_RTOL, "params_lr_fraction": RL_PARAMS_LR_FRACTION,
+          "learners": out, "nvidia_smi": smi})
+    for name, r in out.items():
+        check(r["stats_max_rel_diff"] <= RL_STATS_RTOL, f"{name} stats against the CPU: {r}")
+        check(r["params_max_abs_diff_over_lr"] <= RL_PARAMS_LR_FRACTION,
+              f"{name} params against the CPU: {r}")
+    ev = out["impala"]["evaluation"]
+    check(ev["devices"] == ["cuda", "cpu"] and ev["actions"][0] == ev["actions"][1],
+          f"IMPALA's single-learner evaluation on the learner's device: {ev}")
+    check(out["dqn"]["target_syncs"] == 2, f"DQN target syncs: {out['dqn']['target_syncs']}")
+    return icfg, ibatches, stats
+
+
+def rl_gang(torch, smi, icfg, batches, card_stats):
+    """(c) a one-learner ``LearnerGroup`` on the card through the port's
+    runtime, leasing the GPU: IMPALA's update on (b)'s batches."""
+    import os
+
+    import ray_tpu_torch as rt
+    from ray_tpu_torch.rl import impala as I
+    from ray_tpu_torch.rl.learner_group import LearnerGroup
+    from ray_tpu_torch.util.reaper import find_runtime_pids
+
+    init_state, update = I._make_vtrace_update(icfg, RL_OBS_DIM, RL_MLP_ACTIONS)
+    rt.init(num_cpus=4)
+    try:
+        gpus = rt.cluster_resources().get("GPU", 0)
+        t0 = time.perf_counter()
+        group = LearnerGroup(num_learners=1, init_fn=init_state, update_builder=lambda: update,
+                             resources_per_learner={"GPU": 1})
+        start_s = time.perf_counter() - t0
+        try:
+            held = rt.available_resources().get("GPU", 0)
+            stats = [group.update(b) for b in batches]
+            info = group.learner_info[0]
+        finally:
+            group.shutdown()
+        wait_gpu_back(rt)
+    finally:
+        rt.shutdown()
+    deadline = time.monotonic() + 15
+    while find_runtime_pids(spawner_pid=os.getpid()) and time.monotonic() < deadline:
+        time.sleep(0.1)
+    left = find_runtime_pids(spawner_pid=os.getpid())
+    diff = max(abs(s[k] - c[k]) / abs(c[k]) for s, c in zip(stats, card_stats) for k in c)
+    emit({"phase": "rl", "part": "c_learner_gang", "cluster_gpus": gpus,
+          "gpus_free_while_held": held, "learner": info, "learner_start_s": start_s,
+          "stats": stats,
+          "card_stats_here": card_stats, "max_rel_diff": diff, "tol": RL_GANG_RTOL,
+          "left_after": left, "nvidia_smi": smi})
+    check(gpus == 1, f"the runtime detects the card: {gpus} GPUs")
+    check(held == 0, f"the learner holds the GPU: {held} free")
+    check(info["device"] == "cuda" and info["cuda_visible_devices"] == "0",
+          f"the learner sees its leased GPU: {info}")
+    check(diff <= RL_GANG_RTOL, f"gang stats against this process's card run: {diff}")
+    check(not left, f"no process of the cluster survives shutdown: {left}")
+
+
+def phase_rl(torch, K, smi: str):
+    """RL at Atari width: (a) forward parity and throughput, (b) the
+    learners on the card against the CPU, (c) the learner gang."""
+    gc_collect(torch)
+    t_phase = time.perf_counter()
+    rl_forward(torch, K, smi)
+    icfg, batches, card_stats = rl_learners(torch, smi)
+    rl_gang(torch, smi, icfg, batches, card_stats)
+    emit({"phase": "rl", "part": "end", "seconds": time.perf_counter() - t_phase})
+
+
+# ---------------------------------------------------------------------------
+# 15. pipeline
+
+
+#: the pipeline's microbatches: phase slice's batch of 2 split in 2
+PIPE_MICRO = 2
+
+
+def pipe_grads(torch, leaves_fn, out, cot):
+    """The gradients ``out.backward(cot)`` leaves on ``leaves_fn()``'s
+    tensors (each set to None first)."""
+    leaves = leaves_fn()
+    for t in leaves:
+        t.grad = None
+    out.backward(cot)
+    torch.cuda.synchronize()
+    return [t.grad for t in leaves]
+
+
+def phase_pipeline(torch, A, L, smi: str):
+    """GPipe over phase ``slice``'s config, params and batch on a world-1
+    nccl mesh (the stage axis 1): all layers in the one stage, the batch as
+    2 microbatches, against the layer loop."""
+    import types
+
+    import torch.distributed as dist
+
+    from ray_tpu_torch.parallel.mesh import MeshSpec, make_mesh
+    from ray_tpu_torch.parallel.pipeline import pipeline_apply, stack_stage_params
+    from ray_tpu_torch.tools.profile_train_step import SLICE, train_slice
+
+    gc_collect(torch)
+    t_phase = time.perf_counter()
+    cfg, (model, _opt), _, batch = train_slice(seed=0)
+    n_layers = SLICE["n_layers"]
+    names = list(L._layer_shapes(cfg))
+    with torch.no_grad():
+        x = torch.nn.functional.embedding(batch["tokens"], model.embed)
+    cos, sin = L.rope_tables(cfg, x.shape[1], device="cuda")
+
+    def layer(p, x):
+        x = L._attention_block(cfg, p, x, cos, sin)
+        return L._mlp_block(cfg, p, x)[0]
+
+    def stage_fn(p, x):
+        for lp in p["layers"]:
+            x = layer(types.SimpleNamespace(**lp), x)
+        return x
+
+    def loop(x):
+        for lp in model.layers:
+            x = layer(lp, x)
+        return x
+
+    stacked = stack_stage_params([{"layers": [{k: getattr(lp, k).detach() for k in names}
+                                              for lp in model.layers]}])
+    stacked_leaves = [lp[k].requires_grad_() for lp in stacked["layers"] for k in names]
+    model_leaves = lambda: [getattr(lp, k) for lp in model.layers for k in names]
+    micro = x.reshape(PIPE_MICRO, x.shape[0] // PIPE_MICRO, *x.shape[1:])
+    g = torch.Generator(device="cuda").manual_seed(9)
+    cot = torch.randn(micro.shape, generator=g, device="cuda", dtype=x.dtype)
+    def timed(forward, leaves_fn):
+        """``forward()``'s output and gradients, with the forward's and the
+        backward's ms (host clock to a sync)."""
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        y = forward()
+        torch.cuda.synchronize()
+        fwd = 1e3 * (time.perf_counter() - t0)
+        t0 = time.perf_counter()
+        grads = pipe_grads(torch, leaves_fn, y, cot.reshape(y.shape))
+        return y.detach(), grads, fwd, 1e3 * (time.perf_counter() - t0)
+
+    try:
+        mesh = make_mesh(MeshSpec())
+        pipeline = lambda: pipeline_apply(mesh, stage_fn, stacked, micro)
+        first = timed(pipeline, lambda: stacked_leaves)[2:]  # cuBLAS and the group warm up
+        A.reset_launch_counts()  # the pipeline's forward and backward start here
+        out, pipe_g, fwd_ms, bwd_ms = timed(pipeline, lambda: stacked_leaves)
+        launches = {fn.__name__: fn.launches for fn in A.KERNELS}  # read just after
+        routes = {fn.__name__: dict(fn.route_launches) for fn in A.KERNELS}
+        A.reset_launch_counts()
+        pipeline()
+        launches_fwd = {fn.__name__: fn.launches for fn in A.KERNELS}  # a forward alone
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+    # the layer loop on the same microbatches, and over the whole batch (each
+    # timed on its second run)
+    rows = {}
+    for what, run in (("per_microbatch", lambda: torch.stack([loop(m) for m in micro])),
+                      ("whole_batch", lambda: loop(x))):
+        timed(run, model_leaves)
+        y, grads, fwd, bwd = timed(run, model_leaves)
+        rows[what] = {"forward_ms": fwd, "backward_ms": bwd,
+                      "forward_rel_rms": rel_rms(out.reshape(y.shape), y.detach()),
+                      "forward_equal": torch.equal(out.reshape(y.shape), y.detach()),
+                      "grad_max_rel_norm_err": max(
+                          float((a[0].float() - b.float()).norm() / b.float().norm())
+                          for a, b in zip(pipe_g, grads))}
+        del y, grads
+    del pipe_g, stacked, stacked_leaves
+    gc_collect(torch)
+    emit({"phase": "pipeline", "config": f"LlamaConfig.llama2_7b(n_layers={n_layers}) bf16",
+          "reduced": [f"n_layers 32 -> {n_layers}", "stage axis 1 (one card: each stage "
+                      "shift is a copy on the one rank)"],
+          "mesh": "world 1, nccl, MeshSpec(stage=1)", "stages": 1, "layers_per_stage": n_layers,
+          "microbatches": [PIPE_MICRO, *micro.shape[1:]], "tol": BF16_LOSS_RTOL,
+          "launches_forward": launches_fwd, "launches": launches, "launches_by_route": routes,
+          "forward_ms": fwd_ms, "backward_ms": bwd_ms, "first_call_ms": first, "loop": rows,
+          "seconds": time.perf_counter() - t_phase, "nvidia_smi": smi})
+    want = n_layers * PIPE_MICRO
+    check(launches_fwd == {"flash_fwd": want, "flash_bwd_dq": 0, "flash_bwd_dkv": 0},
+          f"the pipeline's forward launches {launches_fwd}")
+    for name in launches:
+        check(launches[name] == want, f"pipeline {name} launched {launches[name]}, want {want}")
+        check(routes[name] == {"tensor_core": want, "cuda_core": 0},
+              f"pipeline {name} by route {routes[name]}")
+    check(rows["per_microbatch"]["forward_equal"],
+          "the pipeline's forward equals the layer loop on the same microbatches")
+    check(rows["whole_batch"]["forward_rel_rms"] <= BF16_LOSS_RTOL,
+          f"forward against the whole batch's loop: {rows['whole_batch']}")
+    for what, r in rows.items():
+        check(r["grad_max_rel_norm_err"] <= BF16_LOSS_RTOL,
+              f"layer gradients against the loop's ({what}): {r}")
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -3023,13 +3493,15 @@ def main() -> int:
     phase_train(torch, A, L, smi, slice_summary)
     phase_moe(torch, A, L, smi, slice_summary)
     phase_seq_parallel(torch, A, L, smi, slice_summary)
+    phase_rl(torch, K, smi)
+    pipe_launches = phase_pipeline(torch, A, L, smi)
     emit({"phase": "total", "seconds_from_slice": time.perf_counter() - t_start,
           "seconds": time.perf_counter() - T_IMPORT})
     emit({"kernels": [
         {"name": k, "route": "cuda", "source": SOURCES[k],
          "replaces": TPU_KERNELS[k][1], "replaces_fn": TPU_KERNELS[k][0],
          "launches": launches[k], "max_abs_err": errs[k], **times[k],
-         "launches_by_route": routes[k]}
+         "launches_by_route": routes[k], "launches_pipeline": pipe_launches[k]}
         for k in SOURCES
     ]})
     print(smi, flush=True)

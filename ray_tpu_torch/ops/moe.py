@@ -25,6 +25,7 @@ from typing import Dict, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from ray_tpu_torch.parallel.comm import GradSumOver, SumOver
 from ray_tpu_torch.parallel.mesh import EXPERT, mesh_axis_sizes, shard_map_compat
 from ray_tpu_torch.parallel.sharding import PartitionSpec as P
 
@@ -149,43 +150,6 @@ def moe_ffn(
     return out.reshape(B, S, d).to(x.dtype), aux
 
 
-class _SumOver(torch.autograd.Function):
-    """All-reduce (sum) over ``group`` forward, identity backward: each rank
-    holds a part of a sum every rank then uses whole, so each part's
-    gradient is the whole sum's."""
-
-    @staticmethod
-    def forward(ctx, x, group):
-        import torch.distributed as dist
-
-        x = x.clone()
-        dist.all_reduce(x, group=group)
-        return x
-
-    @staticmethod
-    def backward(ctx, grad):
-        return grad, None
-
-
-class _GradSumOver(torch.autograd.Function):
-    """Identity forward, all-reduce (sum) of the gradient backward: the
-    entry of a value every rank holds whole into per-rank parts (the
-    counterpart of ``_SumOver``)."""
-
-    @staticmethod
-    def forward(ctx, x, group):
-        ctx.group = group
-        return x.view_as(x)
-
-    @staticmethod
-    def backward(ctx, grad):
-        import torch.distributed as dist
-
-        grad = grad.clone()
-        dist.all_reduce(grad, group=ctx.group)
-        return grad, None
-
-
 def _moe_local(x, router, w_gate, w_up, w_down, *, groups, top_k, capacity_factor):
     """One rank's part of ``moe_ffn``: every token routed (``x`` is the whole
     batch on every rank), this rank's experts run, and their outputs summed
@@ -204,10 +168,10 @@ def _moe_local(x, router, w_gate, w_up, w_down, *, groups, top_k, capacity_facto
                                 router_noise=0.0, generator=None)
     mine = slice(r * e_loc, (r + 1) * e_loc)
     if n > 1:
-        xt, combine = _GradSumOver.apply(xt, group), _GradSumOver.apply(combine, group)
+        xt, combine = GradSumOver.apply(xt, group), GradSumOver.apply(combine, group)
     out = _experts(disp[:, mine], combine[:, mine], xt, w_gate, w_up, w_down, x.dtype)
     if n > 1:
-        out = _SumOver.apply(out, group)
+        out = SumOver.apply(out, group)
     return out.reshape(B, S, d).to(x.dtype), aux["aux_loss"], aux["dropped_fraction"]
 
 

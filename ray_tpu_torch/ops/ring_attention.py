@@ -41,6 +41,7 @@ import torch.distributed as dist
 from torch.utils.checkpoint import checkpoint
 
 from ray_tpu_torch.ops.attention import flash_attention
+from ray_tpu_torch.parallel.comm import RingShift
 from ray_tpu_torch.parallel.mesh import DATA, FSDP, SEQUENCE, TENSOR, shard_map_compat
 from ray_tpu_torch.parallel.sharding import PartitionSpec as P
 
@@ -77,39 +78,6 @@ def _merge(acc, m, l, pv_i, m_i, l_i):
     alpha = torch.exp(m - m_new)
     beta = torch.exp(m_i - m_new)
     return acc * alpha + pv_i * beta, m_new, l * alpha + l_i * beta
-
-
-def _shift(tensors, group, to: int, frm: int):
-    """Send each tensor to group rank ``to`` and receive its counterpart from
-    group rank ``frm``, as one batch of point-to-point ops."""
-    to, frm = dist.get_global_rank(group, to), dist.get_global_rank(group, frm)
-    sends = [t.contiguous() for t in tensors]
-    recvs = [torch.empty_like(t) for t in sends]
-    ops = [dist.P2POp(dist.isend, t, to, group) for t in sends]
-    ops += [dist.P2POp(dist.irecv, t, frm, group) for t in recvs]
-    for work in dist.batch_isend_irecv(ops):
-        work.wait()
-    return recvs
-
-
-class _RingShift(torch.autograd.Function):
-    """One ring rotation of a K/V chunk: rank j's chunk moves to rank j-1
-    (so after t rotations rank i holds the chunk of rank (i + t) % n); the
-    backward moves each gradient back to the rank it came from."""
-
-    @staticmethod
-    def forward(ctx, k, v, group):
-        ctx.group = group
-        n, r = dist.get_world_size(group), dist.get_rank(group)
-        kn, vn = _shift((k, v), group, to=(r - 1) % n, frm=(r + 1) % n)
-        return kn, vn
-
-    @staticmethod
-    def backward(ctx, dk, dv):
-        group = ctx.group
-        n, r = dist.get_world_size(group), dist.get_rank(group)
-        dk, dv = _shift((dk, dv), group, to=(r + 1) % n, frm=(r - 1) % n)
-        return dk, dv, None
 
 
 def ring_attention(
@@ -152,7 +120,7 @@ def ring_attention(
     kc, vc = k, v
     for t in range(n):
         if t < n - 1:  # the next chunk's rotation, outside the checkpoint
-            kn, vn = _RingShift.apply(kc, vc, group)
+            kn, vn = RingShift.apply(group, -1, kc, vc)  # from the next rank
         k_offset = ((my_idx + t) % n) * s_loc
         acc, m, l = checkpoint(merge_chunk, acc, m, l, kc, vc, k_offset, use_reentrant=False)
         if t < n - 1:

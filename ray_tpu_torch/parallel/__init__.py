@@ -4,11 +4,13 @@
 The JAX package's dense collectives happen inside compiled XLA programs;
 the port's happen inside DTensor ops over a ``torch.distributed`` process
 group (``mesh``, ``sharding``). Cross-host data movement outside a step
-rides the object store (``collectives``). The pipeline (GPipe) is not
-ported yet (ROADMAP Queue A 8), nor ``cpu_mesh_devices``, XLA's virtual
-CPU devices: a gloo group of processes takes their place.
+rides the object store (``collectives``). The GPipe schedule
+(``pipeline``) runs over the ``stage`` axis through ``shard_map_compat``.
+``cpu_mesh_devices``, XLA's virtual CPU devices, is not ported: a gloo
+group of processes takes their place.
 """
 
+from ray_tpu_torch.parallel.pipeline import pipeline_apply, stack_stage_params
 from ray_tpu_torch.parallel.mesh import (
     MeshSpec,
     DATA,
@@ -35,6 +37,8 @@ from ray_tpu_torch.parallel.sharding import (
 from ray_tpu_torch.parallel.collectives import CollectiveGroup
 
 __all__ = [
+    "pipeline_apply",
+    "stack_stage_params",
     "MeshSpec",
     "DATA",
     "FSDP",

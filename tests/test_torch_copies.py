@@ -154,17 +154,19 @@ COPIES = {
     "observability/rpc_metrics": _SAME,
     "observability/timeline": _SAME,
     "observability/tracing": _SAME,
-    # the pipeline (GPipe) is not ported yet, nor cpu_mesh_devices (XLA's
-    # virtual CPU devices; a gloo group of processes takes their place)
+    # cpu_mesh_devices (XLA's virtual CPU devices) is not ported: a gloo
+    # group of processes takes their place
     "parallel/__init__": (
         ("__all__",),
         ("from ray_tpu_torch.parallel.mesh import MeshSpec, DATA, FSDP, TENSOR, "
-         "SEQUENCE, EXPERT, STAGE, cpu_mesh_devices, make_mesh",
-         "from ray_tpu_torch.parallel.pipeline import pipeline_apply, stack_stage_params"),
+         "SEQUENCE, EXPERT, STAGE, cpu_mesh_devices, make_mesh",),
         ("from ray_tpu_torch.parallel.mesh import MeshSpec, DATA, FSDP, TENSOR, "
          "SEQUENCE, EXPERT, STAGE, make_mesh",),
     ),
     "parallel/collectives": _SAME,
+    "rl/__init__": _SAME,
+    "rl/replay": _SAME,
+    "rl/test_envs": _SAME,
     "runtime_env/__init__": _SAME,
     # the package cache (_host above)
     "runtime_env/packaging": (("_CACHE_ROOT",), (), (_host("TMP_ROOT"),)),
@@ -355,7 +357,9 @@ def test_copy_matches_original(module):
 #: (against the JAX package on the same inputs), not statement by
 #: statement: whole directories, and single modules
 _PORTED = ("inference/", "models/", "ops/")
-_PORTED_MODULES = ("parallel/mesh", "parallel/sharding", "data/iterator", "train/backend")
+_PORTED_MODULES = ("parallel/mesh", "parallel/sharding", "parallel/pipeline", "data/iterator",
+                   "train/backend", "rl/models", "rl/env_runner", "rl/utils",
+                   "rl/ppo", "rl/dqn", "rl/impala", "rl/learner_group")
 
 
 def test_every_copy_is_held():
