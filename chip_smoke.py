@@ -250,9 +250,46 @@ JSON line on stdout:
    forward kernel launched n_layers x 2 times in the forward, dq and dk/dv
    n_layers x 2 each in the backward, all on the tensor cores; its ms
    printed beside the loops'.
+16. tune, on a fresh cluster of the port's (which must detect the card):
+   (a) a function trainable over phase ``slice``'s config, seed and batch
+   at slice's lr, 10x and 100x, ``resources_per_trial={"CPU": 1, "GPU":
+   1}``, one trial at a time, 4 steps at most under ASHA (rungs at 1 and
+   2 steps): each trial's actor sees the card as GPU 0, each step
+   launches each kernel n_layers times on the tensor cores, the slice-lr
+   trial's losses are within 2^-8 of ``slice``'s, every trial's status is
+   the one ASHA's rule gives on the reported losses (replayed here), and
+   a 10 ms sampler sees the GPU held in one spell a trial, free between;
+   (b) ``TorchTrainer`` over ``llama_train_loop`` at train (b)'s config as
+   the trainable, lr 1x and 10x: each trial's worker an nccl group of
+   world 1 on GPU 0, n_layers x 4 tensor-core launches a kernel, the best
+   trial the one with the lowest final loss, the lr-1x losses within 2^-8
+   of train (b)'s, one GPU spell a trial; it prints each trial's seconds
+   and step ms; no process of the cluster survives.
+17. job: ``start_job_server`` and ``JobSubmissionClient`` on a fresh
+   cluster. (i) ``python -m ray_tpu_torch.tools.train_llama`` submitted as
+   a job trains 2 steps of ``slice``'s model through ``TorchTrainer``: it
+   must succeed, its logs (``tail_job_logs``) must hold losses within 2^-8
+   of ``slice``'s, its entrypoint must see ``CUDA_VISIBLE_DEVICES=""`` and
+   its worker the card; (ii) a tiny f32 training job stopped while its
+   worker holds the GPU must read STOPPED, the GPU must come back, and
+   the entrypoint and the worker must be gone.
+18. autoscaler: a GPU-less head (``{"GPU": 0}``), ``StandardAutoscaler``
+   over ``FakeMultiNodeProvider`` with one ``{"CPU": 1, "GPU": 1}`` node
+   type: a pending ``num_gpus=1`` task makes it launch one node, where the
+   task runs the three kernels at the main case against their plain
+   versions on GPU 0; the idle node is terminated after its 3 s timeout,
+   its daemon and worker gone; it prints seconds from demand to the
+   task's start and from idle to termination.
+19. cli: ``python -m ray_tpu_torch.scripts start --head`` (its PID files
+   under a ``TMPDIR`` of its own): ``status`` lists one node and ``GPU:
+   1/1``, ``list nodes`` shows it, a driver on that address runs a
+   ``num_gpus=1`` task running the kernels against their plain versions,
+   and ``stop`` stops 1 daemon and leaves no process of the port's.
    Then the script's total seconds.
 
-Then the ``kernels`` summary line, the ``nvidia-smi`` line, and last the
+Then the ``kernels`` summary line (each kernel's launches on the main path
+and in phases pipeline, tune, job and autoscaler), the ``nvidia-smi``
+line, and last the
 ``{"ok": true, "device": ...}`` line. Any failed check raises: the script
 then exits non-zero without the last line. Without a CUDA device it exits
 non-zero before printing anything.
@@ -2551,21 +2588,37 @@ def train_resume_f32(torch, L, smi, storage):
     train_worker_checks(done, "train (a)")
 
 
-def train_7b(torch, L, smi, storage, slice_summary):
-    """(b) the slice's config, params and batch through the trainer: one
-    warm and 3 timed steps of the sharded step with selective remat."""
+def slice_rows(torch, steps):
+    """Phase ``slice``'s batch (``slice_batch(0)``) as host token rows, once
+    for each of ``steps`` steps: a dataset a trainer worker reads."""
     import numpy as np
 
+    from ray_tpu_torch.tools.profile_train_step import slice_batch
+
+    b = slice_batch(0)
+    seqs = torch.cat([b["tokens"], b["targets"][:, -1:]], dim=1).cpu().numpy()
+    return np.concatenate([seqs] * steps)
+
+
+def slice_loop(lr):
+    """``llama_train_loop``'s config for phase ``slice``'s model at ``lr``:
+    the seed, batch and depth of the slice, fsdp rules, selective remat."""
+    from ray_tpu_torch.tools.profile_train_step import SLICE
+
+    return {"model": {"preset": "llama2_7b", "n_layers": SLICE["n_layers"]}, "seed": 0,
+            "lr": lr, "remat": "selective", "batch_size": SLICE["batch"]}
+
+
+def train_7b(torch, L, smi, storage, slice_summary):
+    """(b) the slice's config, params and batch through the trainer: one
+    warm and 3 timed steps of the sharded step with selective remat.
+    Returns its losses."""
     from ray_tpu_torch.tools.profile_train_step import SLICE
 
     n_layers, steps = SLICE["n_layers"], 4
-    g = torch.Generator(device="cuda").manual_seed(3)  # train_slice(seed=0)'s batch
-    seqs = torch.randint(0, 32000, (SLICE["batch"], SLICE["seq"] + 1), generator=g,
-                         device="cuda").cpu().numpy()
-    loop = {"model": {"preset": "llama2_7b", "n_layers": n_layers}, "seed": 0,
-            "lr": SLICE["lr"], "remat": "selective", "batch_size": SLICE["batch"]}
+    loop = slice_loop(SLICE["lr"])
     t0 = time.perf_counter()
-    result = train_fit(loop, np.concatenate([seqs] * steps), "train_b", storage)
+    result = train_fit(loop, slice_rows(torch, steps), "train_b", storage)
     fit_s = time.perf_counter() - t0
     done = result.metrics
     hist = [m for m in result.metrics_history if "loss" in m]
@@ -2597,6 +2650,7 @@ def train_7b(torch, L, smi, storage, slice_summary):
         check(n == want, f"worker {name} launched {n} times, expected {want}")
         check(done["launches_by_route"][name] == {"tensor_core": want, "cuda_core": 0},
               f"worker {name} by route {done['launches_by_route'][name]}")
+    return losses
 
 
 def train_remat_modes(torch, A, L, smi):
@@ -2651,7 +2705,8 @@ def gc_collect(torch):
 
 def phase_train(torch, A, L, smi: str, slice_summary: dict):
     """The training path through the trainer: (a) a resumed f32 run, (b)
-    the slice at 7B width through ``TorchTrainer``, (c) remat modes."""
+    the slice at 7B width through ``TorchTrainer``, (c) remat modes.
+    Returns (b)'s losses."""
     import os
     import tempfile
 
@@ -2667,7 +2722,7 @@ def phase_train(torch, A, L, smi: str, slice_summary: dict):
             rt.init(num_cpus=4)
             train_resume_f32(torch, L, smi, storage)
             gc_collect(torch)
-            train_7b(torch, L, smi, storage, slice_summary)
+            losses_b = train_7b(torch, L, smi, storage, slice_summary)
         finally:
             rt.shutdown()
             if dist.is_initialized():
@@ -2681,6 +2736,7 @@ def phase_train(torch, A, L, smi: str, slice_summary: dict):
     emit({"phase": "train", "part": "end", "left_after": left,
           "seconds": time.perf_counter() - t_phase})
     check(not left, f"no process of the cluster survives shutdown: {left}")
+    return losses_b
 
 
 # ---------------------------------------------------------------------------
@@ -3029,8 +3085,10 @@ def phase_seq_parallel(torch, A, L, smi: str, slice_summary: dict):
 #: the CNN's batch of frames (bench.py's cnn_forward_images_per_s shape)
 #: and Atari's 6 actions; CartPole's obs and actions for the MLP nets
 RL_FRAMES, RL_ACTIONS, RL_OBS_DIM, RL_MLP_ACTIONS = (256, 84, 84, 4), 6, 4, 2
-#: the card's f32 forward (TF32 off) against the CPU's: max |err| over max
-#: |ref|; the bf16 params' (bf16 frames) against f32: relative RMS
+#: the card's f32 forward (TF32 off) against the same function in f64 on
+#: the CPU: max |err| over max |ref| (the CPU's own f32 forward is reported
+#: beside it, held to nothing: it is the host library's rounding, not the
+#: card's); the bf16 params' (bf16 frames) against f32: relative RMS
 RL_F32_REL, RL_BF16_REL_RMS = 1e-5, 2.0 ** -6
 #: one update on the card against the same update on the CPU from the
 #: card's state: stats relative, params absolute as a fraction of lr (the
@@ -3041,7 +3099,8 @@ RL_GANG_RTOL = 1e-6
 
 
 def rel_err(a, b) -> float:
-    return float((a.float() - b.float()).abs().max() / b.float().abs().max())
+    a, b = a.double(), b.double()
+    return float((a - b).abs().max() / b.abs().max())
 
 
 def rel_rms(a, b) -> float:
@@ -3069,9 +3128,9 @@ def cnn_work(params, frames_shape, frame_bytes: int, param_bytes: int) -> tuple:
 
 
 def rl_forward(torch, K, smi):
-    """(a) the CNN Q-net and policy and the MLP nets on the card against the
-    same functions on the CPU (f32), bf16 params against f32, and the
-    Q-net's images/s beside the bound."""
+    """(a) the CNN Q-net and policy and the MLP nets on the card (f32)
+    against the same functions in f64 on the CPU, bf16 params against f32,
+    and the Q-net's images/s beside the bound."""
     from ray_tpu_torch.rl import models as M
 
     g = torch.Generator().manual_seed(3)
@@ -3083,18 +3142,23 @@ def rl_forward(torch, K, smi):
                            dtype=torch.uint8)
     obs = torch.randn((RL_FRAMES[0], RL_OBS_DIM), generator=torch.Generator().manual_seed(5))
     card = lambda tree, dtype=None: M.tree_map(lambda t: t.to("cuda", dtype), tree)
-    errs = {}
+    f64 = lambda tree: M.tree_map(lambda t: t.double(), tree)
+    errs, cpu_errs = {}, {}
     with torch.no_grad():
         for name, fn, params, x in (("cnn_q", M.apply_cnn_q, qnet, frames),
                                     ("cnn_policy", M.apply_cnn_policy, pnet, frames),
                                     ("mlp_policy", M.apply_mlp_policy, mlp_pi, obs),
                                     ("mlp_q", M.apply_mlp_q, mlp_q, obs)):
-            ref, got = fn(params, x), fn(card(params), x.cuda())
-            for i, (r, o) in enumerate(zip(*((t,) if torch.is_tensor(t) else t
-                                             for t in (ref, got)))):
-                check(o.is_cuda and o.shape == r.shape and bool(torch.isfinite(o).all()),
-                      f"{name} output {i} on the card, finite, of shape {tuple(r.shape)}")
+            x64 = x if x.dtype == torch.uint8 else x.double()
+            ref, cpu32, got = fn(f64(params), x64), fn(params, x), fn(card(params), x.cuda())
+            for i, (r, c, o) in enumerate(zip(*((t,) if torch.is_tensor(t) else t
+                                                for t in (ref, cpu32, got)))):
+                check(o.is_cuda and o.dtype == torch.float32 and o.shape == r.shape
+                      and bool(torch.isfinite(o).all()),
+                      f"{name} output {i} on the card, f32, finite, of shape {tuple(r.shape)}")
                 errs[f"{name}/{i}"] = rel_err(o.cpu(), r)
+                cpu_errs[f"{name}/{i}"] = {"cpu_f32_vs_f64": rel_err(c, r),
+                                           "card_vs_cpu_f32": rel_err(o.cpu(), c)}
         q_dev, frames_dev = card(qnet), frames.cuda()
         q32 = M.apply_cnn_q(q_dev, frames_dev)
         q_bf = card(qnet, torch.bfloat16)
@@ -3115,11 +3179,16 @@ def rl_forward(torch, K, smi):
                        "flops": flops, "bytes": nbytes,
                        "frames": "uint8" if esz == 4 else "bfloat16 (uint8 / 255)"}
     emit({"phase": "rl", "part": "a_forward", "frames": list(RL_FRAMES), "actions": RL_ACTIONS,
-          "cnn_params": n_params, "max_rel_err_vs_cpu": errs, "tol": RL_F32_REL,
+          "cnn_params": n_params, "max_rel_err_vs_f64": errs, "tol": RL_F32_REL,
+          "reported_only": cpu_errs,
+          "host_cpu": {"capability": torch.backends.cpu.get_cpu_capability(),
+                       "threads": torch.get_num_threads()},
+          "tf32": {"matmul": torch.backends.cuda.matmul.allow_tf32,
+                   "cudnn": torch.backends.cudnn.allow_tf32},
           "bf16_rel_rms_vs_f32": bf_rms, "bf16_tol": RL_BF16_REL_RMS, "cnn_q": rows,
           "nvidia_smi": smi})
     for k, e in errs.items():
-        check(e <= RL_F32_REL, f"{k}: card against CPU {e} > {RL_F32_REL}")
+        check(e <= RL_F32_REL, f"{k}: card against f64 {e} > {RL_F32_REL} ({cpu_errs[k]})")
     check(bf_rms <= RL_BF16_REL_RMS, f"bf16 CNN against f32: {bf_rms}")
 
 
@@ -3264,6 +3333,7 @@ def rl_learners(torch, smi):
         U.apply_mlp_policy = policy
     out["impala"]["evaluation"] = {"devices": seen, "actions": actions}
     emit({"phase": "rl", "part": "b_learners", "dtype": "float32 (TF32 off)",
+          "cudnn_deterministic": torch.backends.cudnn.deterministic,
           "stats_rtol": RL_STATS_RTOL, "params_lr_fraction": RL_PARAMS_LR_FRACTION,
           "learners": out, "nvidia_smi": smi})
     for name, r in out.items():
@@ -3328,7 +3398,17 @@ def phase_rl(torch, K, smi: str):
     gc_collect(torch)
     t_phase = time.perf_counter()
     rl_forward(torch, K, smi)
-    icfg, batches, card_stats = rl_learners(torch, smi)
+    # cuDNN's default backward-filter algorithms accumulate with atomics:
+    # the card's conv gradients vary run to run, and where a sum cancels
+    # they stray far enough (1e-3 of the leaf's largest) for Adam's step on
+    # a small second moment to leave the params bound in some runs. The
+    # deterministic algorithms give the card one update to hold.
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        icfg, batches, card_stats = rl_learners(torch, smi)
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
     rl_gang(torch, smi, icfg, batches, card_stats)
     emit({"phase": "rl", "part": "end", "seconds": time.perf_counter() - t_phase})
 
@@ -3461,6 +3541,552 @@ def phase_pipeline(torch, A, L, smi: str):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# 16. tune
+
+
+#: (a)'s sweep: phase slice's lr and two larger ones, TUNE_STEPS steps a
+#: trial at most, under ASHA with rungs at 1 and 2 steps (the better half
+#: of the trials that reached a rung go on)
+TUNE_LR_FACTORS = (1, 10, 100)
+TUNE_STEPS = 4
+TUNE_ASHA = dict(max_t=TUNE_STEPS, grace_period=1, reduction_factor=2)
+#: (b)'s sweep over train (b)'s config: its lr and one larger
+TUNE_B_LR_FACTORS = (1, 10)
+
+
+def tune_slice_trial(config):
+    """(a)'s function trainable, run by the trial's actor on the GPU it
+    leased: phase ``slice``'s config, seed and batch at ``config["lr"]``,
+    TUNE_STEPS steps, each step's loss, ms and kernel launches reported
+    beside what the actor saw of the card."""
+    import os
+
+    import torch
+    from ray_tpu_torch import tune
+    from ray_tpu_torch.models import llama as L
+    from ray_tpu_torch.ops import attention as A
+    from ray_tpu_torch.tools.profile_train_step import SLICE, slice_batch
+
+    cfg = L.LlamaConfig.llama2_7b(n_layers=SLICE["n_layers"])
+    model = L.init_params(cfg, 0)
+    state = (model, L.adamw(config["lr"])(model.parameters()))
+    step, batch = L.make_train_step(cfg), slice_batch(0, cfg.vocab_size)
+    seen = {"pid": os.getpid(), "cuda_visible_devices": os.environ.get("CUDA_VISIBLE_DEVICES"),
+            "device_count": torch.cuda.device_count(), "device": torch.cuda.get_device_name(0)}
+    for i in range(TUNE_STEPS):
+        torch.cuda.synchronize()
+        A.reset_launch_counts()  # this step's launches
+        t0 = time.perf_counter()
+        state, loss = step(state, batch)
+        loss = float(loss)
+        torch.cuda.synchronize()
+        tune.report({"step": i, "loss": loss, "step_ms": 1e3 * (time.perf_counter() - t0),
+                     "launches_by_route": {fn.__name__: dict(fn.route_launches)
+                                           for fn in A.KERNELS}, **seen})
+
+
+class TrialClock:
+    """A Tune callback: the host time of each trial's first result and of
+    its completion."""
+
+    def setup(self, experiment_dir):
+        self.start, self.first, self.done = time.perf_counter(), {}, {}
+
+    def on_trial_result(self, trial, result):
+        self.first.setdefault(trial.trial_id, time.perf_counter())
+
+    def on_trial_complete(self, trial):
+        self.done[trial.trial_id] = time.perf_counter()
+
+    def walls(self, trials):
+        """Each trial's seconds from the one before it completing (or the
+        sweep's start) to its first result and to its completion: with one
+        trial at a time, what a trial costs, its actor's start included."""
+        out, prev = [], self.start
+        for t in trials:
+            out.append({"to_first_result_s": self.first.get(t.trial_id, prev) - prev,
+                        "wall_s": self.done[t.trial_id] - prev})
+            prev = self.done[t.trial_id]
+        return out
+
+
+class GpuSampler:
+    """Reads the cluster's free GPUs every 10 ms in a thread while it is
+    entered; ``spells()`` counts the runs of readings with the GPU held."""
+
+    def __init__(self, rt):
+        import threading
+
+        self._rt, self._stop, self.samples = rt, threading.Event(), []
+        self._thread = threading.Thread(target=self._run, daemon=True)
+
+    def _run(self):
+        while not self._stop.is_set():
+            self.samples.append(self._rt.available_resources().get("GPU", 0))
+            time.sleep(0.01)
+
+    def __enter__(self):
+        self._thread.start()
+        return self
+
+    def __exit__(self, *exc):
+        self._stop.set()
+        self._thread.join(timeout=10)
+
+    def spells(self) -> int:
+        held = [s < 1 for s in self.samples]
+        return sum(1 for i, h in enumerate(held) if h and (i == 0 or not held[i - 1]))
+
+
+def asha_replay(trials, mode):
+    """The statuses ASHA's rule gives the trials' reported losses, fed to a
+    fresh scheduler in the order the sweep ran them (one at a time): a
+    trial stops at its first STOP, later reports of the same poll unfed."""
+    from ray_tpu_torch.tune import ASHAScheduler
+    from ray_tpu_torch.tune.schedulers import STOP
+
+    asha, out = ASHAScheduler(mode=mode, **TUNE_ASHA), {}
+    for t in trials:
+        out[t.trial_id] = "TERMINATED"
+        for it, m in enumerate(t.metrics_history, 1):
+            if asha.on_result(t.trial_id, it, m["loss"]) == STOP:
+                out[t.trial_id] = "STOPPED"
+                break
+    return out
+
+
+def tune_function_sweep(torch, smi, slice_summary):
+    """(a) a function trainable over the slice, one GPU a trial, under ASHA.
+    Returns each kernel's launches over every trial."""
+    import ray_tpu_torch as rt
+    from ray_tpu_torch import tune
+    from ray_tpu_torch.tools.profile_train_step import SLICE
+    from ray_tpu_torch.train import RunConfig
+
+    n_layers, lrs = SLICE["n_layers"], [SLICE["lr"] * f for f in TUNE_LR_FACTORS]
+    clock = TrialClock()
+    with GpuSampler(rt) as gpu:
+        grid = tune.Tuner(
+            tune_slice_trial, param_space={"lr": tune.grid_search(lrs)},
+            resources_per_trial={"CPU": 1, "GPU": 1},
+            tune_config=tune.TuneConfig(metric="loss", mode="min",
+                                        scheduler=tune.ASHAScheduler(**TUNE_ASHA),
+                                        max_concurrent_trials=1),
+            run_config=RunConfig(name="tune_a", callbacks=[clock])).fit()
+    wait_gpu_back(rt)
+    trials = list(grid)
+    replay = asha_replay(trials, "min")
+    walls = clock.walls(trials)
+    rows = [{"lr": t.config["lr"], "status": t.status, "error": t.error,
+             "asha_replay": replay[t.trial_id],
+             "losses": [m["loss"] for m in t.metrics_history],
+             "step_ms": [m["step_ms"] for m in t.metrics_history],
+             "seen": {k: t.metrics_history[0][k] for k in
+                      ("pid", "cuda_visible_devices", "device_count", "device")}
+             if t.metrics_history else None, **w} for t, w in zip(trials, walls)]
+    launches = {name: sum(m["launches_by_route"][name]["tensor_core"]
+                          + m["launches_by_route"][name]["cuda_core"]
+                          for t in trials for m in t.metrics_history)
+                for name in SOURCES}
+    ref = slice_summary["losses"]
+    at_slice = rows[0]["losses"]
+    rel = max((abs(a - b) / abs(b) for a, b in zip(at_slice, ref)), default=math.inf)
+    emit({"phase": "tune", "part": "a_function_trainable",
+          "config": f"LlamaConfig.llama2_7b(n_layers={n_layers}) bf16, phase slice's seed and "
+                    "batch", "reduced": [f"n_layers 32 -> {n_layers}"],
+          "resources_per_trial": {"CPU": 1, "GPU": 1}, "asha": TUNE_ASHA, "trials": rows,
+          "slice_losses": ref, "max_rel_diff_vs_slice": rel, "gpu_held_spells": gpu.spells(),
+          "gpu_samples": len(gpu.samples), "launches": launches, "nvidia_smi": smi})
+    check(all(t.status in ("TERMINATED", "STOPPED") for t in trials),
+          f"every trial ran: {[(r['lr'], r['status'], r['error']) for r in rows]}")
+    check(len({r["seen"]["pid"] for r in rows}) == len(lrs), "one actor a trial")
+    for r in rows:
+        check(r["status"] == r["asha_replay"], f"ASHA's stop follows its rule: {r}")
+        check(r["seen"]["cuda_visible_devices"] == "0" and r["seen"]["device_count"] == 1
+              and r["seen"]["device"] == torch.cuda.get_device_name(0),
+              f"the trial's actor sees the card through its lease: {r['seen']}")
+    for t in trials:
+        for m in t.metrics_history:
+            for name, routes in m["launches_by_route"].items():
+                check(routes == {"tensor_core": n_layers, "cuda_core": 0},
+                      f"tune (a) {name} launches in a step: {routes}")
+    check(rows[0]["status"] == "TERMINATED" and len(at_slice) == TUNE_STEPS
+          and rel <= BF16_LOSS_RTOL,
+          f"the trial at the slice's lr repeats its losses: {at_slice} vs {ref}")
+    check(gpu.spells() == len(lrs), f"the GPU came back between trials: {gpu.spells()} spells")
+    return launches
+
+
+def tune_trainer_sweep(torch, smi, storage, losses_b):
+    """(b) ``TorchTrainer`` over ``llama_train_loop`` at train (b)'s config
+    as the trainable, one GPU worker a trial. Returns each kernel's
+    launches over every trial."""
+    import ray_tpu_torch as rt
+    import ray_tpu_torch.data as rd
+    from ray_tpu_torch import tune
+    from ray_tpu_torch.parallel.mesh import MeshSpec
+    from ray_tpu_torch.tools.profile_train_step import SLICE
+    from ray_tpu_torch.tools.train_llama import llama_train_loop
+    from ray_tpu_torch.train import RunConfig, ScalingConfig, TorchBackendConfig, TorchTrainer
+
+    n_layers, steps = SLICE["n_layers"], len(losses_b)
+    lrs = [SLICE["lr"] * f for f in TUNE_B_LR_FACTORS]
+    trainer = TorchTrainer(
+        llama_train_loop, train_loop_config=slice_loop(SLICE["lr"]),
+        scaling_config=ScalingConfig(num_workers=1, use_gpu=True),
+        backend_config=TorchBackendConfig(mesh_spec=MeshSpec(fsdp=-1), sharding="fsdp"),
+        run_config=RunConfig(name="tune_b", storage_path=storage),
+        datasets={"train": rd.from_numpy(slice_rows(torch, steps), block_size=SLICE["batch"])})
+    clock = TrialClock()
+    with GpuSampler(rt) as gpu:
+        grid = tune.Tuner(
+            trainer, param_space={"lr": tune.grid_search(lrs)},
+            tune_config=tune.TuneConfig(metric="final_loss", mode="min",
+                                        max_concurrent_trials=1),
+            run_config=RunConfig(name="tune_b_sweep", callbacks=[clock])).fit()
+    wait_gpu_back(rt)
+    trials = list(grid)
+    walls = clock.walls(trials)
+    rows = [{"lr": t.config["lr"], "status": t.status, "error": t.error,
+             "losses": t.metrics.get("losses"), "step_ms": t.metrics.get("step_ms_each"),
+             **{k: t.metrics.get(k) for k in ("cuda_visible_devices", "device_count",
+                                              "backend", "world_size", "launches_by_route")},
+             **w} for t, w in zip(trials, walls)]
+    launches = {name: sum(t.metrics["launches"][name] for t in trials) for name in SOURCES}
+    best = grid.get_best_result()
+    rel = max((abs(a - b) / abs(b) for a, b in zip(rows[0]["losses"] or [], losses_b)),
+              default=math.inf)
+    emit({"phase": "tune", "part": "b_trainer_trainable",
+          "config": f"LlamaConfig.llama2_7b(n_layers={n_layers}) bf16 through TorchTrainer "
+                    "(nccl world 1, fsdp rules, selective remat)",
+          "reduced": [f"n_layers 32 -> {n_layers}"], "trials": rows,
+          "best_lr": best.config["lr"], "train_b_losses": losses_b, "max_rel_diff_vs_train_b": rel,
+          "gpu_held_spells": gpu.spells(), "launches": launches, "nvidia_smi": smi})
+    for t in trials:
+        check(t.status == "TERMINATED", f"trial lr={t.config['lr']}: {t.status} {t.error}")
+        train_worker_checks(t.metrics, f"tune (b) lr={t.config['lr']}")
+        for name, routes in t.metrics["launches_by_route"].items():
+            want = n_layers * steps
+            check(routes == {"tensor_core": want, "cuda_core": 0},
+                  f"tune (b) {name} launches by route: {routes}")
+    check(best.metrics["final_loss"] == min(t.metrics["final_loss"] for t in trials),
+          f"the best trial has the lowest final loss: {[r['losses'] for r in rows]}")
+    check(len(rows[0]["losses"]) == steps and rel <= BF16_LOSS_RTOL,
+          f"the trial at train (b)'s lr repeats its losses: {rows[0]['losses']} vs {losses_b}")
+    check(gpu.spells() == len(lrs), f"the GPU came back between trials: {gpu.spells()} spells")
+    return launches
+
+
+def phase_tune(torch, smi: str, slice_summary: dict, losses_b):
+    """Tune sweeps on the port's cluster on the card: (a) a function
+    trainable over the slice, (b) ``TorchTrainer`` as the trainable.
+    Returns each kernel's launches in both."""
+    import os
+    import tempfile
+
+    import ray_tpu_torch as rt
+    from ray_tpu_torch.util.reaper import find_runtime_pids
+
+    gc_collect(torch)
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="tune_runs_") as storage:
+        try:
+            rt.init(num_cpus=4)
+            check(rt.cluster_resources().get("GPU") == 1, "the runtime detects the card")
+            a = tune_function_sweep(torch, smi, slice_summary)
+            b = tune_trainer_sweep(torch, smi, storage, losses_b)
+        finally:
+            rt.shutdown()
+    deadline = time.monotonic() + 15
+    while find_runtime_pids(spawner_pid=os.getpid()) and time.monotonic() < deadline:
+        time.sleep(0.1)
+    left = find_runtime_pids(spawner_pid=os.getpid())
+    emit({"phase": "tune", "part": "end", "left_after": left,
+          "seconds": time.perf_counter() - t_phase, "nvidia_smi": smi})
+    check(not left, f"no process of the cluster survives shutdown: {left}")
+    return {name: a[name] + b[name] for name in SOURCES}
+
+
+# ---------------------------------------------------------------------------
+# 17. job
+
+
+#: (i)'s training job: phase slice's model, batch and lr through the
+#: trainer; (ii)'s job to stop: the tiny model in f32 for many steps
+JOB_STEPS, JOB_STOP_STEPS = 2, 500
+
+
+def job_entrypoint(config, rows_path, name, storage) -> str:
+    import shlex
+
+    return (f"{shlex.quote(sys.executable)} -m ray_tpu_torch.tools.train_llama "
+            f"--name {name} --storage {shlex.quote(storage)} --rows {shlex.quote(rows_path)} "
+            f"--config {shlex.quote(json.dumps(config))}")
+
+
+def job_lines(logs: str):
+    """The JSON lines ``tools/train_llama.py`` printed."""
+    return [json.loads(line) for line in logs.splitlines() if line.startswith("{")]
+
+
+def gang_pids():
+    """Pids of the live ``TrainWorker`` actors (a training gang)."""
+    from ray_tpu_torch.util import state
+
+    return [a["pid"] for a in state.list_actors()
+            if a["class_name"].startswith("TrainWorker") and a["state"] == "ALIVE"]
+
+
+def job_train(torch, client, smi, storage, slice_summary):
+    """(i) a job that trains phase slice's model JOB_STEPS steps through
+    ``TorchTrainer`` on the cluster it was given. Returns each kernel's
+    launches in the job's worker."""
+    import numpy as np
+
+    from ray_tpu_torch.tools.profile_train_step import SLICE
+
+    rows_path = f"{storage}/job_rows.npy"
+    np.save(rows_path, slice_rows(torch, JOB_STEPS))
+    t0 = time.perf_counter()
+    job_id = client.submit_job(
+        entrypoint=job_entrypoint(slice_loop(SLICE["lr"]), rows_path, "job_i", storage))
+    chunks = list(client.tail_job_logs(job_id, poll_s=0.2))
+    wall_s = time.perf_counter() - t0
+    status, logs = client.get_job_status(job_id), "".join(chunks)
+    lines = job_lines(logs) if status == "SUCCEEDED" else []
+    entry = lines[0]["entrypoint"] if lines else None
+    losses = [m["loss"] for m in lines[1:] if "loss" in m]
+    done = lines[-1] if lines else {}
+    ref = slice_summary["losses"][:JOB_STEPS]
+    rel = max((abs(a - b) / abs(b) for a, b in zip(losses, ref)), default=math.inf)
+    want = SLICE["n_layers"] * JOB_STEPS
+    emit({"phase": "job", "part": "i_training_job", "status": status, "chunks": len(chunks),
+          "entrypoint": entry, "losses": losses, "slice_losses": ref, "max_rel_diff": rel,
+          "step_ms": done.get("step_ms_each"), "worker": {
+              k: done.get(k) for k in ("cuda_visible_devices", "device_count", "device_name",
+                                       "backend", "world_size", "launches_by_route")},
+          "submit_to_end_s": wall_s, "logs_tail": None if lines else logs[-4000:],
+          "nvidia_smi": smi})
+    check(status == "SUCCEEDED", f"the training job succeeded: {status}")
+    check(entry["cuda_visible_devices"] == "", f"the entrypoint sees no card: {entry}")
+    check(len(losses) == JOB_STEPS and rel <= BF16_LOSS_RTOL,
+          f"the job's losses {losses} against the slice's {ref}")
+    train_worker_checks(done, "job (i)")
+    check(done["device_name"] == torch.cuda.get_device_name(0), "the worker's device is the card")
+    for name, routes in done["launches_by_route"].items():
+        check(routes == {"tensor_core": want, "cuda_core": 0}, f"job {name} by route: {routes}")
+    return {name: done["launches"][name] for name in SOURCES}
+
+
+def job_stop(rt, client, smi, storage):
+    """(ii) ``stop_job`` on a job while its trainer's worker holds the GPU."""
+    import numpy as np
+
+    rows_path = f"{storage}/job_stop_rows.npy"
+    np.save(rows_path, np.random.RandomState(5).randint(0, 256, size=(JOB_STOP_STEPS * 2, 65)))
+    config = {"model": {"preset": "tiny", "dtype": "float32"}, "seed": 0, "lr": 1e-3,
+              "remat": False, "batch_size": 2}
+    job_id = client.submit_job(entrypoint=job_entrypoint(config, rows_path, "job_ii", storage))
+    deadline = time.monotonic() + 120
+    while not gang_pids() or rt.available_resources().get("GPU", 0) != 0:
+        check(time.monotonic() < deadline and client.get_job_status(job_id) in (
+            "PENDING", "RUNNING"), f"the job's worker holds the GPU: {client.get_job_logs(job_id)}")
+        time.sleep(0.1)
+    gang = gang_pids()
+    entry = job_lines(client.get_job_logs(job_id))[0]["entrypoint"]
+    t0 = time.perf_counter()
+    stopped = client.stop_job(job_id)
+    status = client.wait_until_terminal(job_id, timeout=60)
+    wait_gpu_back(rt, 30.0)
+    back_s = time.perf_counter() - t0
+    left = [p for p in [entry["pid"], *gang] if not rt_pid_gone(p)]
+    emit({"phase": "job", "part": "ii_stop", "stopped": stopped, "status": status,
+          "entrypoint_pid": entry["pid"], "gang_pids": gang, "left": left,
+          "stop_to_gpu_back_s": back_s, "nvidia_smi": smi})
+    check(stopped and status == "STOPPED", f"stop_job gives STOPPED: {stopped} {status}")
+    check(not left, f"no process of the job survives: {left}")
+
+
+def phase_job(torch, smi: str, slice_summary: dict):
+    """Jobs on the port's cluster on the card, through the job server's
+    REST API: (i) a training job, (ii) a job stopped while it holds the
+    GPU. Returns each kernel's launches in (i)."""
+    import os
+    import tempfile
+
+    import ray_tpu_torch as rt
+    from ray_tpu_torch.job import JobSubmissionClient, start_job_server, stop_job_server
+    from ray_tpu_torch.util.reaper import find_runtime_pids
+
+    gc_collect(torch)
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="job_runs_") as storage:
+        try:
+            rt.init(num_cpus=4)
+            server = start_job_server(port=0)
+            try:
+                client = JobSubmissionClient(f"http://127.0.0.1:{server.port}")
+                launches = job_train(torch, client, smi, storage, slice_summary)
+                job_stop(rt, client, smi, storage)
+            finally:
+                stop_job_server()
+        finally:
+            rt.shutdown()
+    deadline = time.monotonic() + 15
+    while find_runtime_pids(spawner_pid=os.getpid()) and time.monotonic() < deadline:
+        time.sleep(0.1)
+    left = find_runtime_pids(spawner_pid=os.getpid())
+    emit({"phase": "job", "part": "end", "left_after": left,
+          "seconds": time.perf_counter() - t_phase, "nvidia_smi": smi})
+    check(not left, f"no process of the cluster survives shutdown: {left}")
+    return launches
+
+
+# ---------------------------------------------------------------------------
+# 18. autoscaler
+
+
+#: the autoscaled node's idle timeout and the autoscaler's period
+AS_IDLE_S, AS_PERIOD_S = 3.0, 0.3
+
+
+def as_kernels_in_worker(case, seed):
+    """``rt_kernels_in_worker`` on the autoscaled node, stamped with the
+    wall time it started (the driver and the node share one host clock)."""
+    started = time.time()
+    report, _o = rt_kernels_in_worker(case, seed)
+    return {**report, "started_at": started}
+
+
+def phase_autoscaler(torch, K, smi: str):
+    """A GPU node launched by the autoscaler for a pending ``num_gpus=1``
+    task on a GPU-less head, and terminated once idle. Returns each
+    kernel's launches in the task."""
+    import ray_tpu_torch as rt
+    from ray_tpu_torch.autoscaler import (
+        AutoscalerConfig, FakeMultiNodeProvider, NodeTypeConfig, StandardAutoscaler)
+    from ray_tpu_torch.cluster_utils import Cluster
+    from ray_tpu_torch.util.reaper import find_runtime_pids
+
+    gc_collect(torch)
+    t_phase = time.perf_counter()
+    cluster = Cluster(head_resources={"GPU": 0}, num_cpus=2)  # no detection: a GPU-less head
+    controller = f"127.0.0.1:{cluster.controller_port}"
+    provider = FakeMultiNodeProvider(controller)
+    node_type = NodeTypeConfig("h100", {"CPU": 1, "GPU": 1}, max_workers=1)
+    try:
+        rt.init(address=cluster.address)
+        head_gpus = rt.cluster_resources().get("GPU", 0)
+        autoscaler = StandardAutoscaler(provider, AutoscalerConfig(
+            node_types=[node_type], idle_timeout_s=AS_IDLE_S, update_interval_s=AS_PERIOD_S))
+        autoscaler.start()
+        try:
+            t_demand = time.time()
+            report = rt.get(rt.remote(num_gpus=1)(as_kernels_in_worker).remote(K.MAIN, 0),
+                            timeout=300)
+            t_idle = time.perf_counter()  # the task is done: the node goes idle
+            nodes = provider.non_terminated_nodes()
+            daemons = [provider._nodes[n["id"]]["proc"].pid for n in nodes]
+            deadline = time.monotonic() + 120
+            while provider.non_terminated_nodes():
+                check(time.monotonic() < deadline, "the idle node is terminated")
+                time.sleep(0.05)
+            idle_to_gone_s = time.perf_counter() - t_idle
+            left = [p for p in [*daemons, report["pid"]] if not rt_pid_gone(p)]
+        finally:
+            autoscaler.stop()
+    finally:
+        try:
+            provider.shutdown()
+        finally:
+            rt.shutdown()
+            cluster.shutdown()
+    deadline = time.monotonic() + 15
+    while find_runtime_pids(controller_addr=controller) and time.monotonic() < deadline:
+        time.sleep(0.1)
+    cluster_left = find_runtime_pids(controller_addr=controller)
+    emit({"phase": "autoscaler", "part": "gpu_node", "head_gpus": head_gpus,
+          "node_type": {"name": node_type.name, "resources": node_type.resources},
+          "idle_timeout_s": AS_IDLE_S, "nodes_launched": nodes, "task": report,
+          "demand_to_task_start_s": report["started_at"] - t_demand,
+          "idle_to_terminated_s": idle_to_gone_s, "left": left, "cluster_left": cluster_left,
+          "seconds": time.perf_counter() - t_phase, "nvidia_smi": smi})
+    check(head_gpus == 0, f"the head has no GPU: {head_gpus}")
+    check([n["node_type"] for n in nodes] == ["h100"], f"one h100 node launched: {nodes}")
+    check(report["cuda_visible_devices"] == "0" and report["device_count"] == 1
+          and report["device"] == torch.cuda.get_device_name(0),
+          f"the task sees the card through the node's GPU 0: {report}")
+    for name, routes in report["launches_by_route"].items():
+        check(routes == {"tensor_core": 1, "cuda_core": 0}, f"autoscaler {name}: {routes}")
+    for what, r in report["readings"].items():
+        check(r["ok"], f"autoscaled worker {what}: {r}")
+    check(not left, f"the node's daemon and worker are gone: {left}")
+    check(not cluster_left, f"no process of the cluster survives: {cluster_left}")
+    return report["launches"]
+
+
+# ---------------------------------------------------------------------------
+# 19. cli
+
+
+def phase_cli(torch, K, smi: str):
+    """The operator CLI on the card: ``start --head``, ``status``, ``list
+    nodes``, a driver's ``num_gpus=1`` task, ``stop``."""
+    import os
+    import re
+    import tempfile
+
+    import ray_tpu_torch as rt
+    from ray_tpu_torch.util.reaper import find_runtime_pids
+
+    gc_collect(torch)
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="cli_") as tmp:
+        env = dict(os.environ, TMPDIR=tmp)  # the CLI's PID files: a directory of its own
+
+        def cli(*args):
+            out = subprocess.run([sys.executable, "-m", "ray_tpu_torch.scripts", *args],
+                                 capture_output=True, text=True, env=env, timeout=120)
+            check(out.returncode == 0, f"cli {args}: {out.stderr[-2000:]}")
+            return out.stdout
+
+        started = cli("start", "--head", "--num-cpus", "2")
+        addr = re.search(r"address: (\S+)", started).group(1)
+        head_pid = int(re.search(r"pid (\d+)", started).group(1))
+        stopped, report = None, None
+        try:
+            status = cli("status", "--address", addr)
+            nodes = json.loads(cli("list", "nodes", "--address", addr))
+            rt.init(address=addr)
+            try:
+                task = rt.remote(num_gpus=1)(rt_kernels_in_worker)
+                report, _o = rt.get(task.remote(K.MAIN, 0), timeout=300)
+                del _o
+            finally:
+                rt.shutdown()
+        finally:
+            stopped = cli("stop")
+        controller = ":".join(addr.split(":")[:2])
+        deadline = time.monotonic() + 30
+        while (find_runtime_pids() or not rt_pid_gone(head_pid, 0.1)) \
+                and time.monotonic() < deadline:
+            time.sleep(0.1)
+        left = find_runtime_pids()
+    emit({"phase": "cli", "status": status, "nodes": nodes, "task": report,
+          "stop": stopped.strip(), "left": left, "controller": controller,
+          "seconds": time.perf_counter() - t_phase, "nvidia_smi": smi})
+    check("cluster: 1 node(s)" in status and "GPU: 1/1 available" in status,
+          f"status lists the node and its GPU: {status}")
+    check(len(nodes) == 1 and nodes[0]["Resources"].get("GPU") == 1.0,
+          f"list nodes shows the node with its GPU: {nodes}")
+    check(report["cuda_visible_devices"] == "0" and report["readings"]["o"]["ok"]
+          and report["launches_by_route"]["flash_fwd"] == {"tensor_core": 1, "cuda_core": 0},
+          f"the driver's GPU task ran the forward kernel against its plain version: {report}")
+    check(stopped.strip() == "stopped 1 daemon(s)", f"stop: {stopped}")
+    check(not left and rt_pid_gone(head_pid, 0.1), f"no process of the port's is left: {left}")
+
+
 def main() -> int:
     import torch
 
@@ -3490,18 +4116,24 @@ def main() -> int:
     phase_runtime(torch, K, L, smi, serve_summary)
     sd_gap_s = phase_serve_deployment(torch, A, L, smi, serve_summary)
     phase_kv_migration(torch, A, L, smi, sd_gap_s)
-    phase_train(torch, A, L, smi, slice_summary)
+    losses_b = phase_train(torch, A, L, smi, slice_summary)
     phase_moe(torch, A, L, smi, slice_summary)
     phase_seq_parallel(torch, A, L, smi, slice_summary)
     phase_rl(torch, K, smi)
     pipe_launches = phase_pipeline(torch, A, L, smi)
+    tune_launches = phase_tune(torch, smi, slice_summary, losses_b)
+    job_launches = phase_job(torch, smi, slice_summary)
+    as_launches = phase_autoscaler(torch, K, smi)
+    phase_cli(torch, K, smi)
     emit({"phase": "total", "seconds_from_slice": time.perf_counter() - t_start,
           "seconds": time.perf_counter() - T_IMPORT})
     emit({"kernels": [
         {"name": k, "route": "cuda", "source": SOURCES[k],
          "replaces": TPU_KERNELS[k][1], "replaces_fn": TPU_KERNELS[k][0],
          "launches": launches[k], "max_abs_err": errs[k], **times[k],
-         "launches_by_route": routes[k], "launches_pipeline": pipe_launches[k]}
+         "launches_by_route": routes[k], "launches_pipeline": pipe_launches[k],
+         "launches_tune": tune_launches[k], "launches_job": job_launches[k],
+         "launches_autoscaler": as_launches[k]}
         for k in SOURCES
     ]})
     print(smi, flush=True)

@@ -2401,6 +2401,16 @@ class CoreWorker(RuntimeBackend):
         self._stopping = True
 
         async def _teardown():
+            # A class pump returns its lease as it exits. Wake the lingering
+            # ones (their queues are empty) and let those returns land before
+            # the clients close: a lease left behind keeps its CPU and GPU on
+            # the node after this driver has gone.
+            for q in self._class_queues.values():
+                q.work.set()
+            deadline = time.monotonic() + 2.0
+            while (any(q.pumps for q in self._class_queues.values())
+                   and time.monotonic() < deadline):
+                await asyncio.sleep(0.005)
             for t in self._pump_tasks:
                 t.cancel()
             for c in self._clients.values():

@@ -21,15 +21,30 @@ losses so far to that step's report) and ``fail_at_step`` (the worker raises bef
 resume from a checkpoint: the failure a gang restart recovers from).
 
 Each step reports ``step``, ``loss`` and ``step_ms`` (host clock, after a
-device synchronise on the card); the last report also carries what the
-worker saw: its devices, its process group's backend and world size, the
-flash kernels' launches by route during its steps, and its peak device
-memory.
+device synchronise on the card); the last report carries the run's losses
+(``losses``, those before a resumed checkpoint included, and
+``final_loss``: a Tune sweep over the trainer ranks trials by what
+``fit()`` returns, which is this report), this run's ``step_ms_each``,
+and what the worker saw: its
+devices, its process group's backend and world size, the flash kernels'
+launches by route during its steps, and its peak device memory.
+
+As a program, the loop is a job to submit: ``python -m
+ray_tpu_torch.tools.train_llama --config JSON --rows FILE.npy`` joins the
+cluster named by ``RAY_TPU_ADDRESS`` (what a job's supervisor gives its
+entrypoint), fits a ``TorchTrainer`` of one worker on ``--rows`` (a ``.npy``
+array of token rows) and prints one JSON line for itself (its pid and
+``CUDA_VISIBLE_DEVICES``), then one per report of the worker. The worker
+leases a GPU and joins an nccl group, or with ``--platform cpu`` holds a CPU
+and joins a gloo group. SIGTERM (a stopped job) ends the fit through
+``SystemExit``, so the trainer shuts its gang down and the worker's GPU goes
+back to the cluster before the program exits.
 """
 
 from __future__ import annotations
 
 import os
+import sys
 import time
 
 
@@ -75,7 +90,7 @@ def llama_train_loop(config: dict) -> None:
         torch.cuda.reset_peak_memory_stats()
     A.reset_launch_counts()  # this worker's steps start here
     state = (model, opt)
-    n = 0
+    n, step_ms_each = 0, []
     for i, batch in enumerate(batches):
         if i < start:  # consumed before the checkpoint this run resumed from
             continue
@@ -89,6 +104,7 @@ def llama_train_loop(config: dict) -> None:
         step_ms = 1e3 * (time.perf_counter() - t0)
         n += 1
         losses.append(loss)
+        step_ms_each.append(step_ms)
         metrics = {"step": i, "loss": loss, "step_ms": step_ms}
         checkpoint = None
         if every and (i + 1) % every == 0:
@@ -99,6 +115,8 @@ def llama_train_loop(config: dict) -> None:
         train.report(metrics, checkpoint=checkpoint)
     train.report({
         "done": True, "steps_run": n, "rank": rank,
+        "losses": list(losses), "final_loss": losses[-1] if losses else None,
+        "step_ms_each": step_ms_each,
         "cuda_visible_devices": os.environ.get("CUDA_VISIBLE_DEVICES"),
         "device_count": torch.cuda.device_count() if on_card else 0,
         "device_name": torch.cuda.get_device_name(0) if on_card else None,
@@ -108,3 +126,53 @@ def llama_train_loop(config: dict) -> None:
         "launches_by_route": {fn.__name__: dict(fn.route_launches) for fn in A.KERNELS},
         "max_memory_allocated_bytes": torch.cuda.max_memory_allocated() if on_card else None,
     })
+
+
+def main(argv=None) -> int:
+    import argparse
+    import json
+    import signal
+
+    p = argparse.ArgumentParser(prog="python -m ray_tpu_torch.tools.train_llama")
+    p.add_argument("--config", required=True, help="llama_train_loop's config, as JSON")
+    p.add_argument("--rows", required=True, help=".npy array of token rows (seq + 1 each)")
+    p.add_argument("--platform", choices=("cuda", "cpu"), default="cuda")
+    p.add_argument("--name", default="train_llama")
+    p.add_argument("--storage", default=None, help="the run's storage path")
+    args = p.parse_args(argv)
+    signal.signal(signal.SIGTERM, lambda *_: sys.exit(128 + signal.SIGTERM))
+
+    import numpy as np
+
+    import ray_tpu_torch as rt
+    import ray_tpu_torch.data as rd
+    from ray_tpu_torch.parallel.mesh import MeshSpec
+    # by its module's name, so the worker imports it (run with -m, this
+    # file is __main__)
+    from ray_tpu_torch.tools.train_llama import llama_train_loop as loop
+    from ray_tpu_torch.train import RunConfig, ScalingConfig, TorchBackendConfig, TorchTrainer
+
+    config = json.loads(args.config)
+    on_cpu = args.platform == "cpu"
+    print(json.dumps({"entrypoint": {
+        "pid": os.getpid(), "cuda_visible_devices": os.environ.get("CUDA_VISIBLE_DEVICES")}}),
+        flush=True)
+    rt.init()
+    try:
+        trainer = TorchTrainer(
+            loop, train_loop_config=config,
+            scaling_config=ScalingConfig(num_workers=1, use_gpu=not on_cpu),
+            backend_config=TorchBackendConfig(platform="cpu" if on_cpu else None,
+                                              mesh_spec=MeshSpec(fsdp=-1), sharding="fsdp"),
+            run_config=RunConfig(name=args.name, storage_path=args.storage),
+            datasets={"train": rd.from_numpy(np.load(args.rows),
+                                             block_size=config["batch_size"])})
+        for metrics in trainer.fit().metrics_history:
+            print(json.dumps(metrics, default=str), flush=True)
+    finally:
+        rt.shutdown()
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

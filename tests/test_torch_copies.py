@@ -82,7 +82,12 @@ COPIES = {
     # deadlocks when a collection, run while a thread holds it, finalises
     # a dropped generator whose __del__ abandons its stream on that thread
     # (test_torch_runtime.py::test_stream_abandoned_by_gc_under_the_streams_lock)
-    "core/core_worker": (("CoreWorker.__init__", "CoreWorker.w_set_accelerator_env"), (), ()),
+    # ... and shutdown lets lingering lease pumps return their leases before
+    # it closes the clients: the reference cancels them, and a lease whose
+    # return is cut off stays held, with its GPU, after the driver has gone
+    # (test_torch_job.py::test_job_reaches_the_gpu_only_through_a_lease)
+    "core/core_worker": (("CoreWorker.__init__", "CoreWorker.shutdown",
+                          "CoreWorker.w_set_accelerator_env"), (), ()),
     "core/exceptions": _SAME,
     "core/execution": _SAME,
     "core/function_manager": _SAME,
@@ -223,6 +228,38 @@ COPIES = {
     # reference probes a public address (a UDP connect to 8.8.8.8) to learn
     # its routed interface, and the port opens no socket towards another host
     "train/worker_group": (("_node_ip_address",), (), ()),
+    # --- the libraries above the runtime: Tune, Jobs, the autoscaler, the
+    # CLI and two util shims (a TorchTrainer is a trainable as a JaxTrainer
+    # is: the Tuner reads its _train_config and run_config) ---
+    "tune/__init__": _SAME,
+    "tune/loggers": _SAME,
+    "tune/schedulers": _SAME,
+    "tune/search": _SAME,
+    "tune/trial": _SAME,
+    "tune/tuner": _SAME,
+    "job/__init__": _SAME,
+    "job/manager": _SAME,
+    "job/sdk": _SAME,
+    "job/server": _SAME,
+    # a job's log file is a host path (_host above): the reference's sits
+    # in /tmp/ray_tpu_jobs
+    "job/supervisor": (("_JobSupervisor.__init__",), (), (_host("TMP_ROOT"),)),
+    "autoscaler/__init__": _SAME,
+    "autoscaler/autoscaler": _SAME,
+    "autoscaler/config": _SAME,
+    # spawn_node and the reaper are the port's (module names rewritten)
+    "autoscaler/provider": _SAME,
+    "util/multiprocessing": _SAME,
+    "util/queue": _SAME,
+    # The CLI keeps its PID files and default session dir under the port's
+    # TMP_ROOT (_PID_DIR, cmd_start), not /tmp/ray_tpu, so neither CLI's
+    # `stop` reads the other's PIDs; and `stop` signals a recorded PID only
+    # while its command line runs a `ray_tpu_torch.core.` entry point
+    # (cmd_stop): the reference's b"ray_tpu" is a substring of every
+    # command line of the JAX package's daemons too. cmd_start's messages
+    # and main's prog name the port's command (there is no console entry
+    # point: `python -m ray_tpu_torch.scripts`).
+    "scripts": (("_PID_DIR", "cmd_start", "cmd_stop", "main"), (), (_host("TMP_ROOT"),)),
 }
 
 #: module -> (names the port gives the reference's, statements that carry a
