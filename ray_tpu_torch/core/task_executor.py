@@ -262,8 +262,16 @@ class TaskExecutor:
         return {"results": results}
 
     async def _handle_actor_task(self, spec: TaskSpec, conn=None) -> Dict[str, Any]:
+        # a built-in call or a compiled graph's loop carries a sequence
+        # number of its caller's like any call: it takes and advances the
+        # caller's turn, or every later call from that handle waits for it
+        caller = spec.owner.worker_id if spec.owner else b""
+        ordered = self._max_concurrency == 1 and not spec.concurrency_group
         # built-in methods
         if spec.method_name == "__ray_ready__":
+            if ordered:
+                await self._wait_turn(caller, spec.seq_no)
+                self._advance(caller)
             return {"results": self._package(spec, [(spec.return_ids[0], True)])}
         if spec.method_name == "__ray_terminate__":
             reply = {"results": self._package(spec, [(spec.return_ids[0], None)])}
@@ -281,8 +289,13 @@ class TaskExecutor:
                 args, _kwargs = execution.resolve_args(spec, self._get_dep)
                 run_dag_loop(self._actor_instance, args[0])
 
+            if ordered:
+                await self._wait_turn(caller, spec.seq_no)
+            fut = loop.run_in_executor(self._default_lane, _run_loop)
+            if ordered:
+                self._advance(caller)
             try:
-                await loop.run_in_executor(self._default_lane, _run_loop)
+                await fut
                 pairs = [(spec.return_ids[0], None)]
             except Exception as e:  # noqa: BLE001
                 pairs = [(spec.return_ids[0], TaskError(spec.name, e))]
@@ -315,8 +328,7 @@ class TaskExecutor:
                 }
             return await self._run_async_method(spec, method)
         emit = self._make_emit(spec, conn)
-        caller = spec.owner.worker_id if spec.owner else b""
-        if self._max_concurrency == 1 and not spec.concurrency_group:
+        if ordered:
             await self._wait_turn(caller, spec.seq_no)
             # submission order into the single-thread lane = execution order
             loop = asyncio.get_event_loop()

@@ -138,7 +138,10 @@ COPIES = {
     "core/serialization": (
         ("serialize",), (), ("_rebuild_tensor", "_reduce_tensor", "import sys")),
     "core/streaming": _SAME,
-    "core/task_executor": _SAME,
+    # a compiled graph's loop and __ray_ready__ take their caller's turn
+    # (the reference's skip it, and the actor then never runs another call
+    # from a handle that called it before)
+    "core/task_executor": (("TaskExecutor._handle_actor_task",), (), ()),
     # num_gpus adds to the GPU request as num_tpus adds to TPU
     "core/task_spec": (
         ("TaskOptions.resource_request",), (), ("TaskOptions.num_gpus",)),
