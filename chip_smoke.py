@@ -134,6 +134,33 @@ JSON line on stdout:
    draining with nothing running and every block back; (e) after
    ``serve.shutdown()`` and ``shutdown()`` no process of the cluster may
    survive. It returns (b)'s gap for the next phase to print beside its own.
+   Phase ingress rides this cluster (its lines say ``"phase": "ingress"``;
+   the flash kernels' counts from before its (a) to after its (b), in this
+   process and every replica, are its own and must be 0; each door replica
+   is a CPU deployment, ``num_cpus=0.1``, spawned with
+   ``CUDA_VISIBLE_DEVICES=""`` and never mapping ``libcuda.so``). (a),
+   after (b') while its replica is live: ``ingress_deployment`` with the
+   tenants of ``tests/test_ingress.py`` in front of it; (b')'s requests
+   through ``http_stream`` must equal the in-process server's streams
+   byte for byte; a 48-token stream closed after 2 tokens must bring the
+   engine back to nothing running and every block back within 30 s,
+   admitted once; 12 requests of the abusive tenant (cost 12, burst 50)
+   must give at least one 200 and one 429, every 429 ``rate_limit`` with
+   ``Retry-After > 0``, the engine's admissions growing by exactly the
+   200s and ``serve.status()``'s ``shed_total`` by the 429s; a malformed
+   body gets 400; ``serve.slo_report()``'s ingress and engine books
+   balance. (b), after (c) while the 7B replica is live: a door with the
+   trace's tenants on the default buckets and one abusive tenant (rate
+   100, burst 400) replays ``INGRESS_SPEC`` through
+   ``loadgen.run_trace(..., addresses=...)`` while 40 abusive requests
+   (64-token prompts, 16 new tokens) arrive at 10 a second: every request
+   must come back ok or shed, every shed with a reason and
+   ``Retry-After > 0``, the abuser shed, the door's ok + shed equal to
+   what was sent and its forwards to the engine's admissions, the books
+   balanced; it prints TTFT p50/p99 on the client's clock beside the
+   door's TTFB and the TTFT of the door's router and of the engine, ITL,
+   tokens/s, sheds by class and reason, ``loadgen.score``'s attainment
+   (TTFT 2 s, ITL 0.5 s) and the repro line.
 10. kv_migration (the flash kernels' counts set to 0 before it and read
    after, in this process and in every replica, all 0): KV migration and
    the cluster KV tier. (a) f32 at 2 layers, no cluster: 8 requests (4
@@ -307,7 +334,7 @@ JSON line on stdout:
    Then the script's total seconds.
 
 Then the ``kernels`` summary line (each kernel's launches on the main path
-and in phases pipeline, tune, job, autoscaler and dag), the ``nvidia-smi``
+and in phases pipeline, tune, job, autoscaler, dag and ingress), the ``nvidia-smi``
 line, and last the
 ``{"ok": true, "device": ...}`` line. Any failed check raises: the script
 then exits non-zero without the last line. Without a CUDA device it exits
@@ -1728,6 +1755,372 @@ def wait_gpu_back(rt, timeout_s: float = 60.0):
         time.sleep(0.1)
 
 
+# ---------------------------------------------------------------------------
+# the ingress phase: the HTTP/SSE door (serve/ingress.py) in front of the
+# deployments of phase serve_deployment, and the seeded trace harness
+# (serve/loadgen.py) through it
+
+
+#: (a): the door's tenants (``tests/test_ingress.py``'s), the disconnected
+#: stream's length and the abuser's requests (cost 4 + 8 = 12 each)
+INGRESS_F32_TENANTS = dict(abuser=dict(rate=2.0, burst=50.0, tenant_class="batch"),
+                           vip=dict(tenant_class="interactive"))
+INGRESS_CUT_TOKENS, INGRESS_F32_ABUSES = 48, 12
+#: (b): the trace replayed at 7B (prompts of at most 512 tokens with their
+#: prefix, so 8 slots of 576 tokens hold 288 of the 640 blocks), the
+#: abusive tenant beside it, and the SLOs the run is scored against
+INGRESS_SPEC = dict(seed=20260806, duration_s=20.0, base_rate_rps=2.0,
+                    burst_period_s=10.0, burst_duty=0.2, burst_factor=3.0,
+                    n_tenants=8, prompt_min=16, prompt_max=512,
+                    output_min=8, output_max=64, n_prefixes=4, prefix_len=128,
+                    prefix_reuse=0.7, vocab=32000)
+INGRESS_ABUSER = dict(rate=100.0, burst=400.0, tenant_class="batch")
+INGRESS_ABUSES, INGRESS_ABUSE_RPS, INGRESS_ABUSE_PROMPT, INGRESS_ABUSE_NEW = 40, 10.0, 64, 16
+INGRESS_TTFT_SLO_S, INGRESS_ITL_SLO_S = 2.0, 0.5
+
+
+def flash_launches(A) -> dict:
+    """This process's launches of each flash kernel."""
+    return {fn.__name__: fn.launches for fn in A.KERNELS}
+
+
+def process_maps(pid) -> str:
+    """The memory map of process ``pid`` ("" once it is gone)."""
+    try:
+        with open(f"/proc/{pid}/maps") as f:
+            return f.read()
+    except OSError:
+        return ""
+
+
+def door_process(handle) -> dict:
+    """A door replica's pid, the ``CUDA_VISIBLE_DEVICES`` it was spawned
+    with, and whether its process has the CUDA driver or torch mapped now
+    (a process that never mapped ``libcuda.so`` launched no kernel: read
+    it after the door's traffic)."""
+    pid, env = actor_env(handle)
+    maps = process_maps(pid)
+    return {"pid": pid, "cuda_visible_devices": env,
+            "libcuda_mapped": "libcuda.so" in maps, "torch_loaded": "libtorch" in maps}
+
+
+def ingress_door(rt, serve, target: str, name: str, tenants: dict) -> dict:
+    """``ingress_deployment(target, ...)`` as a CPU deployment: its
+    addresses, its replicas and their processes as deployed."""
+    from ray_tpu_torch.serve.controller import get_or_create_controller
+    from ray_tpu_torch.serve.ingress import (IngressConfig, TenantPolicy, ingress_addresses,
+                                             ingress_deployment)
+
+    t0 = time.perf_counter()
+    ing_cfg = IngressConfig(tenants={t: TenantPolicy(**p) for t, p in tenants.items()})
+    serve.run(ingress_deployment(target, ing_cfg, name=name,
+                                 ray_actor_options={"num_cpus": 0.1}).bind(), name=name)
+    addresses = ingress_addresses(name)
+    replicas = rt.get(get_or_create_controller().get_replicas.remote(name), timeout=60)
+    return {"name": name, "addresses": addresses, "replicas": replicas,
+            "processes": [door_process(r) for r in replicas],
+            "deploy_s": time.perf_counter() - t0}
+
+
+def check_doors(door, what: str) -> None:
+    check(door["processes"] and all(
+        p["cuda_visible_devices"] == "" and not p["libcuda_mapped"] for p in door["processes"]),
+        f"{what}: every door replica sees CUDA_VISIBLE_DEVICES=\"\" and never loaded CUDA: "
+        f"{door['processes']}")
+
+
+def balanced_books(serve, deployments, timeout_s: float = 30.0):
+    """``serve.slo_report()`` once the ingress and engine books of
+    ``deployments`` exist and balance (the identities hold at quiesce)."""
+    deadline = time.monotonic() + timeout_s
+    while True:
+        rep = serve.slo_report()
+        books = [b for n in deployments
+                 for b in rep["deployments"].get(n, {}).get("books", ())]
+        kinds = {b.get("kind") for b in books}
+        if {"ingress", "engine"} <= kinds and all(b["balanced"] for b in books):
+            return rep, books
+        check(time.monotonic() < deadline, f"the ingress and engine books balance: {books}")
+        time.sleep(0.5)
+
+
+def engine_quiet(rt, handle, timeout_s: float = 30.0):
+    """Polls the engine until nothing runs or queues and every block is
+    back; returns its stats and the seconds it took."""
+    t0 = time.monotonic()
+    while True:
+        s = rt.get(handle.method("engine_stats")(), timeout=60)
+        if (s["scheduler"]["running"] == 0 and s["scheduler"]["queue_depth"] == 0
+                and s["blocks"]["used_blocks"] == 0):
+            return s, time.monotonic() - t0
+        if time.monotonic() - t0 > timeout_s:
+            return s, None
+        time.sleep(0.05)
+
+
+def ingress_f32(rt, serve, handle, target: str, reqs, expected, smi: str) -> None:
+    """(a) The door in front of the tiny f32 deployment bound ``params=``:
+    its SSE streams equal the in-process server's byte for byte; a stream
+    closed after 2 tokens cancels its engine request (admitted once,
+    blocks back); the abuser's sheds were never admitted; a malformed body
+    gets 400; the books balance."""
+    import urllib.error
+    import urllib.request
+
+    from ray_tpu_torch.serve.ingress import IngressShedError, http_stream
+
+    t0 = time.perf_counter()
+    door = ingress_door(rt, serve, target, f"{target}-door", INGRESS_F32_TENANTS)
+    addr = door["addresses"][0]
+
+    def estats():
+        return rt.get(handle.method("engine_stats")(), timeout=60)
+
+    over_http = [list(http_stream(addr, r, tenant="vip")) for r in reqs]
+
+    # a disconnect mid-stream reaches engine.cancel()
+    base = estats()["scheduler"]["total_admitted"]
+    cancelled0 = rt.get(handle.method("slo_snapshot")(), timeout=60)["books"].get("cancelled", 0)
+    gen = http_stream(addr, {"prompt": [3, 7, 11], "max_new_tokens": INGRESS_CUT_TOKENS},
+                      tenant="vip")
+    before_close = len([next(gen), next(gen)])
+    gen.close()  # the HTTP connection drops here
+    after_cut, close_to_quiet_s = engine_quiet(rt, handle)
+    cancelled = (rt.get(handle.method("slo_snapshot")(), timeout=60)["books"].get("cancelled", 0)
+                 - cancelled0)
+
+    # the abuser's bucket: every 200 one admission, every 429 none
+    base_shed = estats()["scheduler"]["total_admitted"]
+    ok, retry_afters, reasons = 0, [], []
+    for _ in range(INGRESS_F32_ABUSES):
+        try:
+            out = list(http_stream(addr, {"prompt": [9, 2, 4, 6], "max_new_tokens": 8},
+                                   tenant="abuser"))
+            check(len(out) == 8, f"an admitted abuser request got 8 tokens: {out}")
+            ok += 1
+        except IngressShedError as e:
+            reasons.append(e.reason)
+            retry_afters.append(e.retry_after)
+    shed = len(reasons)
+    admitted = estats()["scheduler"]["total_admitted"] - base_shed
+    deadline = time.monotonic() + 15
+    while True:
+        st = serve.status()
+        if st[door["name"]].get("shed_total", 0) >= shed or time.monotonic() > deadline:
+            break
+        time.sleep(0.25)
+
+    # a malformed body stops at the door
+    try:
+        urllib.request.urlopen(urllib.request.Request(
+            f"http://{addr}/generate", data=b'{"nope": 1}',
+            headers={"Content-Type": "application/json"}), timeout=30)
+        bad_status = 200
+    except urllib.error.HTTPError as e:
+        bad_status = e.code
+
+    rep, books = balanced_books(serve, (target,))
+    ib = next(b for b in books if b.get("kind") == "ingress")
+    # the doors' processes again, after every request of this part
+    door["processes"] = [door_process(r) for r in door["replicas"]]
+    part = {"phase": "ingress", "part": "a_f32_door", "target": target, "door": door["name"],
+            "door_processes": door["processes"], "door_deploy_s": door["deploy_s"],
+            "streams_equal": [a == b for a, b in zip(over_http, expected)],
+            "lengths": [len(a) for a in over_http],
+            "disconnect": {"tokens_before_close": before_close,
+                           "close_to_blocks_back_s": close_to_quiet_s,
+                           "admitted": after_cut["scheduler"]["total_admitted"] - base,
+                           "cancelled": cancelled, "running": after_cut["scheduler"]["running"],
+                           "used_blocks": after_cut["blocks"]["used_blocks"]},
+            "abuser": {"sent": INGRESS_F32_ABUSES, "ok": ok, "shed": shed,
+                       "reasons": sorted(set(reasons)), "retry_after_s": retry_afters,
+                       "admitted": admitted,
+                       "status_shed_total": st[door["name"]].get("shed_total")},
+            "malformed_status": bad_status, "ingress_books": ib,
+            "engine_books": [b for b in books if b.get("kind") == "engine"],
+            "seconds": time.perf_counter() - t0, "nvidia_smi": smi}
+    emit(part)
+    check_doors(door, "(a)")
+    check(all(part["streams_equal"]) and len(over_http) == len(expected),
+          "the door's SSE streams equal the in-process server's byte for byte")
+    d = part["disconnect"]
+    check(close_to_quiet_s is not None and d["running"] == 0 and d["used_blocks"] == 0,
+          f"a closed stream brings the engine back to nothing running, every block back: {d}")
+    check(d["admitted"] == 1, f"the disconnected request was admitted once: {d}")
+    check(ok >= 1 and shed >= 1, f"the abuser got some requests through and was shed: {ok}, {shed}")
+    check(set(reasons) == {"rate_limit"} and all(r > 0 for r in retry_afters),
+          f"every shed is rate_limit with Retry-After > 0: {reasons}, {retry_afters}")
+    check(admitted == ok, f"shed means never admitted: {admitted} admitted for {ok} served")
+    check(part["abuser"]["status_shed_total"] == shed,
+          f"serve.status() counts the sheds: {st[door['name']]}")
+    check(bad_status == 400, f"a malformed body gets 400: {bad_status}")
+    check(ib["shed"] == shed and ib["bad_request"] == 1
+          and ib["seen"] == ib["shed"] + ib["bad_request"] + ib["forwarded"],
+          f"the ingress books: {ib}")
+    serve.delete(door["name"])
+
+
+def ingress_7b(rt, serve, handle, target: str, smi: str) -> None:
+    """(b) The door in front of the full Llama-2-7B replica: the seeded
+    trace through ``loadgen.run_trace`` with an abusive tenant beside it.
+    Every request comes back ok or shed (with a reason and a Retry-After),
+    the abuser is shed, the door's counts reconcile with the engine's
+    admissions, the books balance; it prints the TTFT split between the
+    client, the door and the engine."""
+    import dataclasses
+    import threading
+
+    import numpy as np
+
+    from ray_tpu_torch.serve import loadgen
+    from ray_tpu_torch.serve.ingress import IngressShedError, http_stream, pick_ingress
+
+    t0 = time.perf_counter()
+    spec = loadgen.LoadSpec(**INGRESS_SPEC)
+    trace = loadgen.build_trace(spec)
+    # the trace's tenants on the default buckets, in the trace's classes
+    tenants = {r.tenant: {"tenant_class": r.tenant_class} for r in trace}
+    door = ingress_door(rt, serve, target, f"{target}-door",
+                        {**tenants, "abuser": INGRESS_ABUSER})
+    addrs = door["addresses"]
+    admitted0 = rt.get(handle.method("engine_stats")(), timeout=60)["scheduler"]["total_admitted"]
+
+    rs = np.random.default_rng(spec.seed)
+    abuse_prompt = [int(x) for x in rs.integers(1, spec.vocab, INGRESS_ABUSE_PROMPT)]
+    abuser = {"ok": 0, "shed": [], "errors": [], "ttft_s": []}
+    lock = threading.Lock()
+
+    def abuse_one(addr):
+        try:
+            t_sent, first, n = time.monotonic(), None, 0
+            for _ in http_stream(addr, {"prompt": abuse_prompt,
+                                        "max_new_tokens": INGRESS_ABUSE_NEW},
+                                 tenant="abuser", timeout_s=30.0):
+                if first is None:
+                    first = time.monotonic() - t_sent
+                n += 1
+            with lock:
+                abuser["ok"] += 1
+                abuser["ttft_s"].append(first)
+                if n != INGRESS_ABUSE_NEW:
+                    abuser["errors"].append(f"{n} tokens")
+        except IngressShedError as e:
+            with lock:
+                abuser["shed"].append((e.reason, e.retry_after))
+        except Exception as e:  # noqa: BLE001 — counted and checked below
+            with lock:
+                abuser["errors"].append(repr(e))
+
+    def abuse():
+        """INGRESS_ABUSES requests at INGRESS_ABUSE_RPS, each on its own
+        thread, so an admitted one does not hold back the next."""
+        addr = pick_ingress("abuser", addrs)
+        start, sent = time.monotonic(), []
+        for i in range(INGRESS_ABUSES):
+            delay = start + i / INGRESS_ABUSE_RPS - time.monotonic()
+            if delay > 0:
+                time.sleep(delay)
+            sent.append(threading.Thread(target=abuse_one, args=(addr,)))
+            sent[-1].start()
+        for t in sent:
+            t.join(timeout=120)
+
+    t_run = time.perf_counter()
+    thread = threading.Thread(target=abuse)
+    thread.start()
+    run = loadgen.run_trace(trace, spec=spec, addresses=addrs, time_scale=1.0,
+                            status_fn=serve.status)
+    thread.join(timeout=300)
+    wall_s = time.perf_counter() - t_run
+    check(not thread.is_alive(), "the abuser's thread finished")
+    engine_window = rt.get(handle.method("routing_stats")(), timeout=60)
+    stats, _ = engine_quiet(rt, handle, timeout_s=60)
+    dbg = [rt.get(r.handle_request.remote("debug_stats", [], {}, ""), timeout=60)
+           for r in door["replicas"]]
+    rep, books = balanced_books(serve, (target,))
+    # the doors' processes again, after every request of this part
+    door["processes"] = [door_process(r) for r in door["replicas"]]
+    score = loadgen.score(run, ttft_slo_s=INGRESS_TTFT_SLO_S, itl_slo_s=INGRESS_ITL_SLO_S,
+                          report=rep, status=serve.status())
+
+    recs = run.records
+    outcomes = {o: sum(r["outcome"] == o for r in recs) for o in ("ok", "shed", "error")}
+    sheds = [r for r in recs if r["outcome"] == "shed"]
+    sent = len(trace) + INGRESS_ABUSES
+    door_ok = sum(n for d in dbg for k, n in d["outcomes"].items() if k.endswith(":ok"))
+    door_shed = sum(d["shed_total"] for d in dbg)
+    forwarded = sum(d["forwarded_total"] for d in dbg)
+    admitted = stats["scheduler"]["total_admitted"] - admitted0
+    ttfts = sorted(r["ttft_s"] for r in recs if r["outcome"] == "ok")
+    door_ttfbs = sorted(v for d in dbg for v in d["ttfb_samples_s"])
+    tokens = sum(r.get("n_tokens", 0) for r in recs if r["outcome"] == "ok")
+    shed_by = {}
+    for r in sheds:
+        key = f"{r['tenant_class']}:{r['shed_reason']}"
+        shed_by[key] = shed_by.get(key, 0) + 1
+    for reason, _ in abuser["shed"]:
+        key = f"batch(abuser):{reason}"
+        shed_by[key] = shed_by.get(key, 0) + 1
+    part = {"phase": "ingress", "part": "b_7b_trace", "target": target, "door": door["name"],
+            "door_processes": door["processes"], "door_deploy_s": door["deploy_s"],
+            "spec": dataclasses.asdict(spec),
+            "trace_requests": len(trace),
+            "trace_prompt_tokens": [min(len(r.prompt) for r in trace),
+                                    max(len(r.prompt) for r in trace)],
+            "abuser": {"tenant": INGRESS_ABUSER, "sent": INGRESS_ABUSES, "ok": abuser["ok"],
+                       "shed": len(abuser["shed"]), "errors": abuser["errors"],
+                       "retry_after_s_min": min((r for _, r in abuser["shed"]), default=None)},
+            "outcomes": outcomes, "shed_by_class_reason": shed_by,
+            "errors": [r.get("error") for r in recs if r["outcome"] == "error"][:5],
+            "counts": {"sent": sent, "ok": door_ok, "shed": door_shed, "forwarded": forwarded,
+                       "sheds": [d["sheds"] for d in dbg], "engine_admitted": admitted},
+            # the client's clock (the trace's requests, then every
+            # forwarded one: the trace's and the abuser's admitted, the
+            # population of the next two); the door's (arrival to first SSE
+            # byte, one sample per forwarded request); the door's
+            # router (dispatch to first token, by class: what
+            # serve.slo_report() reports for the deployment); the engine's
+            # (submit to first token): its last 30 s, and since its start
+            # with phase serve_deployment (c)'s traffic in it
+            "ttft_s": {"client": quantiles(ttfts),
+                       "client_forwarded": quantiles(ttfts + abuser["ttft_s"]),
+                       "door_ttfb": quantiles(door_ttfbs),
+                       "router_by_class": {
+                           cls: blk.get("ttft_s") for cls, blk in
+                           rep["deployments"].get(target, {}).get("by_class", {}).items()
+                           if cls},
+                       "engine_p99_last_30s": engine_window["ttft_p99_s"],
+                       "engine_since_start": stats["ttft"]},
+            "itl_s": score["itl"], "generated_tokens": tokens,
+            "generated_tokens_per_s": tokens / run.duration_s, "run_s": run.duration_s,
+            "wall_s": wall_s, "score": {k: score[k] for k in (
+                "requests", "ok", "shed", "errors", "ttft_attainment", "itl_attainment",
+                "by_class", "e2e_p99")},
+            "repro": score["repro"], "engine_blocks": stats["blocks"],
+            "ingress_books": [b for b in books if b.get("kind") == "ingress"],
+            "seconds": time.perf_counter() - t0, "nvidia_smi": smi}
+    emit(part)
+    check_doors(door, "(b)")
+    check(outcomes["error"] == 0 and len(recs) == len(trace),
+          f"every trace request came back ok or shed: {outcomes} {part['errors']}")
+    check(not abuser["errors"], f"the abuser's requests came back ok or shed: {abuser['errors']}")
+    check(all(r.get("shed_reason") and r.get("retry_after_s", 0) > 0 for r in sheds)
+          and all(reason and ra > 0 for reason, ra in abuser["shed"]),
+          "every shed carries a reason and Retry-After > 0")
+    check(len(abuser["shed"]) > 0, f"the abuser was shed: {part['abuser']}")
+    check(door_ok + door_shed == sent and forwarded == sent - door_shed,
+          f"the door's counts reconcile: {part['counts']}")
+    check(door_ok == outcomes["ok"] + abuser["ok"] and door_shed == len(sheds) + len(
+        abuser["shed"]), f"the door's counts are the clients': {part['counts']}")
+    check(admitted == forwarded,
+          f"the engine admitted what the door forwarded: {part['counts']}")
+    check(len(door_ttfbs) == forwarded,  # the trace forwards fewer than 512
+          f"the door timed the first byte of every forwarded request: "
+          f"{len(door_ttfbs)} of {forwarded}")
+    check(stats["blocks"]["used_blocks"] == 0, f"every block came back: {stats['blocks']}")
+    serve.delete(door["name"])
+
+
 def phase_serve_deployment(torch, A, L, smi: str, serve_summary: dict):
     """``llm_deployment`` on the port's cluster: (a) a num_gpus=1 replica
     in f32 at 2 layers streams what an in-process server streams; a
@@ -1883,6 +2276,15 @@ def phase_serve_deployment(torch, A, L, smi: str, serve_summary: dict):
         check(all(part_bp["streams_equal"]) and part_bp["lengths"] == [12, 12],
               "the bound replica streams what the in-process server streams on those params")
         flash_a.append(info_p["flash_launches"])
+
+        # phase ingress (a): the door in front of this replica. The flash
+        # kernels' counts from here to the end of ingress (b), in this
+        # process and every replica, are the ingress path's
+        ingress_here0 = flash_launches(A)
+        ingress_bound0 = rt.get(handle.method("testing_device_info")(), timeout=60)
+        ingress_f32(rt, serve, handle, "llmbound", bound_reqs, in_process_p, smi)
+        ingress_bound1 = rt.get(handle.method("testing_device_info")(), timeout=60)
+        flash_a.append(ingress_bound1["flash_launches"])
         serve.delete("llmbound")
         wait_gpu_back(rt)
 
@@ -1947,6 +2349,21 @@ def phase_serve_deployment(torch, A, L, smi: str, serve_summary: dict):
         check(part_c["http"]["tokens"] == SERVE_NEW_TOKENS,
               f"a request over HTTP got {SERVE_NEW_TOKENS} tokens")
 
+        # phase ingress (b): the door in front of this replica under the
+        # seeded trace, then the ingress path's launches
+        ingress_7b(rt, serve, handle, "llm7b", smi)
+        info_7b = rt.get(handle.method("testing_device_info")(), timeout=60)
+        ingress_launches = {
+            k: (flash_launches(A)[k] - ingress_here0[k]
+                + ingress_bound1["flash_launches"][k] - ingress_bound0["flash_launches"][k]
+                + info_7b["flash_launches"][k])
+            for k in ingress_here0}
+        emit({"phase": "ingress", "part": "c_launches", "launches": ingress_launches,
+              "this_process": flash_launches(A),
+              "replicas": [ingress_bound1["flash_launches"], info_7b["flash_launches"]],
+              "door_replicas": "no libcuda.so mapped (checked in (a) and (b))"})
+        check(sum(ingress_launches.values()) == 0, "the ingress path launches no flash kernel")
+
         # (d) drain with live streams: each finishes, no error
         t0 = time.perf_counter()
         started = threading.Barrier(SD_DRAIN_STREAMS + 1, timeout=300)
@@ -2008,7 +2425,7 @@ def phase_serve_deployment(torch, A, L, smi: str, serve_summary: dict):
           "left_after": left, "seconds": time.perf_counter() - t_phase})
     check(len(pids) >= 2 and not left,
           f"no process of the cluster ({len(pids)} before) survives shutdown: {left}")
-    return kill_gap_s
+    return kill_gap_s, ingress_launches
 
 
 # ---------------------------------------------------------------------------
@@ -3918,7 +4335,20 @@ def job_stop(rt, client, smi, storage):
     t0 = time.perf_counter()
     stopped = client.stop_job(job_id)
     status = client.wait_until_terminal(job_id, timeout=60)
-    wait_gpu_back(rt, 30.0)
+    try:
+        wait_gpu_back(rt, 30.0)
+    except RuntimeError:
+        from ray_tpu_torch.util import state
+
+        # what still holds the GPU
+        emit({"phase": "job", "part": "ii_gpu_held", "job": client.get_job_info(job_id),
+              "entrypoint_alive": bool(process_maps(entry["pid"])),
+              "gang_alive": [bool(process_maps(p)) for p in gang],
+              "actors": [{k: a.get(k) for k in ("class_name", "state", "pid")}
+                         for a in state.list_actors() if a["state"] != "DEAD"],
+              "placement_groups": state.list_placement_groups(),
+              "logs_tail": client.get_job_logs(job_id)[-2000:]})
+        raise
     back_s = time.perf_counter() - t0
     left = [p for p in [entry["pid"], *gang] if not rt_pid_gone(p)]
     emit({"phase": "job", "part": "ii_stop", "stopped": stopped, "status": status,
@@ -4395,7 +4825,7 @@ def main() -> int:
     serve_summary = phase_serve(torch, A, L, smi)
     phase_serve_llm(torch, A, L, smi)
     phase_runtime(torch, K, L, smi, serve_summary)
-    sd_gap_s = phase_serve_deployment(torch, A, L, smi, serve_summary)
+    sd_gap_s, ingress_launches = phase_serve_deployment(torch, A, L, smi, serve_summary)
     phase_kv_migration(torch, A, L, smi, sd_gap_s)
     losses_b = phase_train(torch, A, L, smi, slice_summary)
     phase_moe(torch, A, L, smi, slice_summary)
@@ -4415,7 +4845,8 @@ def main() -> int:
          "launches": launches[k], "max_abs_err": errs[k], **times[k],
          "launches_by_route": routes[k], "launches_pipeline": pipe_launches[k],
          "launches_tune": tune_launches[k], "launches_job": job_launches[k],
-         "launches_autoscaler": as_launches[k], "launches_dag": dag_launches[k]}
+         "launches_autoscaler": as_launches[k], "launches_dag": dag_launches[k],
+         "launches_ingress": ingress_launches[k]}
         for k in SOURCES
     ]})
     print(smi, flush=True)

@@ -175,7 +175,7 @@ class ActorHandle:
                     self._templates[method_name] = tmpl if tmpl is not None else False
                 if tmpl:
                     return worker.submit_from_template(
-                        tmpl, args, kwargs, seq_no=self._next_seq()
+                        tmpl, args, kwargs, next_seq=self._next_seq
                     )
         topts = TaskOptions().merged_with(
             **{k: v for k, v in opts.items() if k in TaskOptions.__dataclass_fields__}

@@ -434,14 +434,18 @@ class Worker:
             and tmpl.owner is self.address
         )
 
-    def submit_from_template(self, tmpl: SpecTemplate, args, kwargs, seq_no: int = 0):
+    def submit_from_template(self, tmpl: SpecTemplate, args, kwargs, next_seq=None):
         """Hot-path submit: splice per-call fields into a cached template
         — no TaskOptions merging, resource normalization, or descriptor
-        re-export per call."""
+        re-export per call. ``next_seq`` (an actor handle's) takes the
+        call's turn only once its arguments are serialized: a call that
+        fails there, or that a signal cuts there, leaves no hole in the
+        caller's order for every later call to wait on."""
         from ray_tpu_torch.core.deadline import remaining as _deadline_remaining
 
         task_id = self.new_task_id()
         sargs, skwargs = self._serialize_args(args, kwargs)
+        seq_no = next_seq() if next_seq is not None else 0
         return_ids = [
             ObjectID.from_index(task_id, i + 1) for i in range(tmpl.num_returns)
         ]

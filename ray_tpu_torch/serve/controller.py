@@ -190,6 +190,10 @@ class _ServeController:
         # long-poll state: bumped whenever any routing set changes
         self._versions: Dict[str, int] = {}
         self._change = threading.Condition()
+        # the control loop's reconcile passes, begun and ended (under
+        # _change): a status wait reads after one that began after it
+        self._passes_begun = 0
+        self._passes_ended = 0
         self._stop = threading.Event()
         self._thread = threading.Thread(
             target=self._control_loop, daemon=True, name="serve-control"
@@ -399,6 +403,16 @@ class _ServeController:
                 return False
             return True
 
+        with self._change:
+            # liveness as of this call: the first read waits (within the
+            # deadline) for a control-loop pass begun after the call, so a
+            # replica that died just before it is counted dead, not routed
+            first = self._passes_begun + 1
+            while self._passes_ended < first and not self._stop.is_set():
+                remaining = deadline - time.monotonic()
+                if remaining <= 0:
+                    break
+                self._change.wait(min(remaining, 0.25))
         while True:
             st = self.status().get(name)
             if _ok(st):
@@ -624,8 +638,15 @@ class _ServeController:
     # -- control loop ----------------------------------------------------
     def _control_loop(self) -> None:
         while not self._stop.wait(0.25):
+            with self._change:
+                self._passes_begun += 1
             try:
-                self._reconcile_once()
+                try:
+                    self._reconcile_once()
+                finally:
+                    with self._change:
+                        self._passes_ended = self._passes_begun
+                        self._change.notify_all()
                 self._autoscale_once()
             except Exception:  # noqa: BLE001 — keep the loop alive
                 import logging

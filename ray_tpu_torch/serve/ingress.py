@@ -835,6 +835,10 @@ class HttpIngress:
                 "outcomes": dict(self._outcomes),
                 "forwarded_total": self._forwarded,
                 "tenants": sorted(self._buckets),
+                # the door's own arrival-to-first-byte times, one per
+                # forwarded request (its last 512), unbucketed: a driver
+                # outside this process splits a client's TTFT with them
+                "ttfb_samples_s": [v for _ts, v in self._recent_ttfb],
             }
         out["pressure"] = self._router.cluster_pressure()
         out["router_decisions"] = {

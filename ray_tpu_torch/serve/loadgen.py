@@ -305,7 +305,7 @@ def run_trace(
                 e2e_s=time.monotonic() - sent,
             )
         except IngressShedError as e:
-            rec.update(outcome="shed", shed_reason=e.reason)
+            rec.update(outcome="shed", shed_reason=e.reason, retry_after_s=e.retry_after)
         except Exception as e:  # noqa: BLE001 — a failed request is a data point
             rec.update(outcome="error", error=repr(e))
         records[req.index] = rec

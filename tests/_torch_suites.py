@@ -17,6 +17,13 @@ reference's shared fixtures (``tests/conftest.py``): ``ray_start_local``,
 leaves a process of the port's runtime behind. conftest's own guard sees
 only the reference's entry points, so without these a leak of the port
 would pass unseen. A fixture the suite defines itself replaces these.
+``one_thread=True`` adds a module-scoped guard that gives every process
+the suite's clusters spawn one OpenMP thread (``OMP_NUM_THREADS=1``), so
+CPU replicas beside the xdist workers do not each take every core.
+
+``wait_for_node_resource`` is conftest's helper of that name on the
+port's runtime (conftest's polls the reference's ``nodes()``): a suite
+that imports it from conftest gets this one through an edit.
 """
 
 from __future__ import annotations
@@ -38,7 +45,7 @@ LEAK_GRACE_S = 10.0
 _RENAME = re.compile(r"\bray_tpu\b")
 
 
-def load(namespace: dict, suite: str, *, edits=(), drop=()) -> None:
+def load(namespace: dict, suite: str, *, edits=(), drop=(), one_thread=False) -> None:
     from _pytest.assertion.rewrite import rewrite_asserts
 
     src = (TESTS / f"test_{suite}.py").read_text()
@@ -58,6 +65,8 @@ def load(namespace: dict, suite: str, *, edits=(), drop=()) -> None:
     rewrite_asserts(tree, src.encode(), filename)
     code = compile(tree, filename, "exec", dont_inherit=True)
     namespace.update(_shared_fixtures())
+    if one_thread:
+        namespace["_port_one_thread"] = _one_thread_fixture()
     exec(code, namespace)
     for name in drop:
         owner, _, attr = name.rpartition(".")
@@ -65,6 +74,34 @@ def load(namespace: dict, suite: str, *, edits=(), drop=()) -> None:
             delattr(namespace[owner], attr)
         else:
             del namespace[attr]
+
+
+def wait_for_node_resource(name, *, exclude=(), timeout=20.0):
+    """Block until an alive node of the port's cluster carries resource
+    ``name`` (and is not in ``exclude``); returns its node id."""
+    import ray_tpu_torch
+
+    deadline = time.time() + timeout
+    while time.time() < deadline:
+        for n in ray_tpu_torch.nodes():
+            if (
+                n.get("Alive")
+                and name in (n.get("Resources") or {})
+                and n.get("node_id") not in exclude
+            ):
+                return n["node_id"]
+        time.sleep(0.05)
+    raise TimeoutError(f"no alive node with resource {name!r} within {timeout}s")
+
+
+def _one_thread_fixture():
+    @pytest.fixture(scope="module", autouse=True)
+    def _port_one_thread():
+        with pytest.MonkeyPatch.context() as mp:
+            mp.setenv("OMP_NUM_THREADS", "1")
+            yield
+
+    return _port_one_thread
 
 
 def _port_pids():

@@ -67,8 +67,10 @@ COPIES = {
         ("from ray_tpu_torch.accelerators.gpu import GPUAcceleratorManager",),
     ),
     "core/__init__": _SAME,
-    "core/actor": _SAME,
-    "core/api": _SAME,
+    # an actor call takes its turn in the caller's order only once its
+    # arguments are serialized (ROADMAP "Inconsistencies")
+    "core/actor": (("ActorHandle._submit_method",), (), ()),
+    "core/api": (("Worker.submit_from_template",), (), ()),
     # host paths (_host above)
     "core/cluster_backend": (
         ("ClusterBackend.start_cluster", "spawn_node"), (), (_host("TMP_ROOT"),)),
@@ -194,9 +196,21 @@ COPIES = {
     "serve/__init__": _SAME,
     "serve/batching": _SAME,
     "serve/config": _SAME,
-    "serve/controller": _SAME,
-    "serve/ingress": _SAME,
-    "serve/loadgen": _SAME,
+    # a status wait first waits for a control-loop pass begun after the
+    # call (the loop counts its passes), so a replica that died just
+    # before the call is counted dead, not routed (ROADMAP "Inconsistencies")
+    "serve/controller": (
+        ("_ServeController.__init__", "_ServeController._control_loop",
+         "_ServeController.wait_status"),
+        (),
+        (),
+    ),
+    # the door's debug_stats carries its per-request first-byte times (the
+    # samples of its windowed p99), and a shed record
+    # of the harness the door's Retry-After: what a driver outside the
+    # door's process reads to split a client's TTFT and to check each shed
+    "serve/ingress": (("HttpIngress.debug_stats",), (), ()),
+    "serve/loadgen": (("run_trace",), (), ()),
     "serve/multiplex": _SAME,
     "serve/proxy": _SAME,
     "serve/replica": _SAME,

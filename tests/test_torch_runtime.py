@@ -269,3 +269,28 @@ def test_stream_timing_separates_bursts():
     assert b["with_prefill"] == {"n": 1, "p50": 140.0}
     assert b["decode_only"]["n"] == 3
     assert b["decode_only_by_batch"] == {4: {"n": 2, "p50": 51.0}, 8: {"n": 1, "p50": 70.0}}
+
+
+class _Unpicklable:
+    def __reduce__(self):
+        raise RuntimeError("refuses to pickle")
+
+
+@rt.remote
+class _Echo:
+    def echo(self, x):
+        return x
+
+
+def test_failed_actor_call_leaves_no_hole_in_the_callers_order(cluster):
+    """An actor call whose arguments fail to serialize (or whose submission a
+    signal cuts there: ``SystemExit`` from a SIGTERM handler) is never sent,
+    so it takes no turn in the caller's order; the next call from the same
+    handle runs. A stopped job's trainer waited out its 10 s shutdown hook
+    on such a hole."""
+    actor = _Echo.remote()
+    assert rt.get(actor.echo.remote(1), timeout=60) == 1
+    with pytest.raises(Exception, match="refuses to pickle"):
+        actor.echo.remote(_Unpicklable())
+    assert rt.get(actor.echo.remote(2), timeout=20) == 2
+    rt.kill(actor)
