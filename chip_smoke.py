@@ -393,6 +393,11 @@ import sys
 import time
 from pathlib import Path
 
+from ray_tpu_torch.tools._smoke_common import (
+    SERVE_CLIENTS, SERVE_ENGINE, SERVE_NEW_TOKENS, SERVE_REQUESTS, HandleClient, bytecode_cache,
+    nvidia_smi, quantiles, serve_traffic, stream_request,
+)
+
 T_IMPORT = time.perf_counter()
 
 #: peak rates of one H100 SXM (NVIDIA data sheet; dense tensor-core bf16,
@@ -422,14 +427,6 @@ def emit(obj) -> None:
 def check(cond: bool, what: str) -> None:
     if not cond:
         raise RuntimeError(f"chip_smoke check failed: {what}")
-
-
-def nvidia_smi() -> str:
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, timeout=60, check=True,
-    )
-    return out.stdout.strip().splitlines()[0]
 
 
 # ---------------------------------------------------------------------------
@@ -621,12 +618,6 @@ def phase_slice(torch, A, L, smi: str):
 #: it) and the bf16 bounds at full depth (relative RMS, top-1 agreements)
 F32_REL_RMS = 1e-5
 BF16_REL_RMS, BF16_TOP1_MIN = 0.1, 5
-#: the serving configuration's engine (full width and depth of Llama-2-7B)
-SERVE_ENGINE = dict(block_size=16, num_blocks=640, prefill_buckets=(64, 128, 256, 512),
-                    decode_buckets=(1, 2, 4, 8), max_decode_batch=8,
-                    prefix_cache_enabled=True, warmup=True)
-#: the traffic: SERVE_CLIENTS threads send SERVE_REQUESTS requests in all
-SERVE_CLIENTS, SERVE_REQUESTS, SERVE_NEW_TOKENS, SHARED_PREFIX = 8, 64, 32, 512
 
 
 def paged_vs_dense(torch, L, cfg, params, n_prompt, n_decode, chunk, seed):
@@ -722,60 +713,6 @@ def mixed_requests(rs, vocab, n, lo, hi, new_tokens):
             for i in range(n)]
 
 
-def serve_traffic(torch, engine, cfg, seed):
-    """SERVE_REQUESTS requests from SERVE_CLIENTS client threads, each
-    thread sending its share one after another, so SERVE_CLIENTS are in
-    flight and, after the first wave, admission and decode overlap.
-    Prompt lengths are drawn from 64-1024 by ``seed``; request 1 is
-    request 0's 512-token prefix exactly (a full-prompt prefix hit: COW)
-    and is sent once request 0's prompt is cached; even requests are
-    greedy, odd ones sample at temperature 0.8 with fixed seeds. Returns
-    each request's (prompt, kwargs, tokens, submit time, token arrival
-    times)."""
-    import threading
-
-    import numpy as np
-
-    rs = np.random.RandomState(seed)
-    lens = rs.randint(64, 1025, size=SERVE_REQUESTS)
-    lens[0] = max(lens[0], SHARED_PREFIX + 64)
-    prompts = [[int(x) for x in rs.randint(1, cfg.vocab_size, size=n)] for n in lens]
-    prompts[1] = prompts[0][:SHARED_PREFIX]
-    kwargs = [dict(max_new_tokens=SERVE_NEW_TOKENS) if i % 2 == 0 else
-              dict(max_new_tokens=SERVE_NEW_TOKENS, temperature=0.8, seed=1000 + i)
-              for i in range(SERVE_REQUESTS)]
-    first_cached = threading.Event()
-    results = [None] * SERVE_REQUESTS
-    errors = []
-
-    def client(c):
-        try:
-            for i in range(c, SERVE_REQUESTS, SERVE_CLIENTS):
-                if i == 1:
-                    first_cached.wait(timeout=300)
-                t0 = time.perf_counter()
-                toks, times = [], []
-                for tok in engine.generate(prompts[i], request_id=f"t{i}", **kwargs[i]):
-                    toks.append(tok)
-                    times.append(time.perf_counter())
-                    if i == 0:
-                        first_cached.set()
-                results[i] = (prompts[i], kwargs[i], toks, t0, times)
-        except Exception as e:  # noqa: BLE001 — re-raised on the main thread
-            errors.append(e)
-            first_cached.set()
-
-    threads = [threading.Thread(target=client, args=(c,)) for c in range(SERVE_CLIENTS)]
-    for t in threads:
-        t.start()
-    for t in threads:
-        t.join(timeout=600)
-    check(not any(t.is_alive() for t in threads), "serve traffic threads finished")
-    if errors:
-        raise errors[0]
-    return results
-
-
 def watch_blocks(engine):
     """Wraps the engine's runner so that, on the host, every block a
     prefill chunk or a decode step reads (its table row) is checked to
@@ -818,15 +755,6 @@ def watch_blocks(engine):
 
     runner.prefill_chunk, runner.decode = checked_prefill, checked_decode
     return foreign
-
-
-def quantiles(xs):
-    import numpy as np
-
-    if not xs:
-        return {"n": 0}
-    return {"n": len(xs), **{f"p{q}": float(np.percentile(xs, q)) for q in (50, 90, 99)},
-            "max": float(max(xs))}
 
 
 #: gaps shorter than this between two tokens of a stream put them in one
@@ -964,7 +892,7 @@ def phase_serve(torch, A, L, smi: str):
         timeline.clear_events()
         A.reset_launch_counts()  # the serve path's run starts here
         t0 = time.perf_counter()
-        results = serve_traffic(torch, engine, cfg, seed=13)
+        results = serve_traffic(engine, cfg.vocab_size, seed=13)
         wall_s = time.perf_counter() - t0
         launches = {fn.__name__: fn.launches for fn in A.KERNELS}  # read just after
         steps = engine_steps()
@@ -1754,27 +1682,6 @@ SD_MAX_QUERIES = 16
 SD_DRAIN_STREAMS = 4
 
 
-class HandleClient:
-    """``serve_traffic``'s engine interface over a deployment handle: each
-    ``generate`` streams one request through the serve router."""
-
-    def __init__(self, handle):
-        self.handle = handle
-
-    def generate(self, prompt, request_id, **kw):
-        yield from self.handle.stream({"prompt": prompt, "request_id": request_id, **kw},
-                                      _method="generate", _timeout=600)
-
-
-def sd_stream(handle, request):
-    """One request through the handle: its tokens and their arrival times."""
-    toks, times = [], []
-    for tok in handle.stream(request, _method="generate", _timeout=600):
-        toks.append(tok)
-        times.append(time.perf_counter())
-    return toks, times
-
-
 def actor_env(handle, var="CUDA_VISIBLE_DEVICES"):
     """An actor's pid and ``var`` in the environment its process was
     spawned with (None when unset)."""
@@ -2212,7 +2119,7 @@ def phase_serve_deployment(torch, A, L, smi: str, serve_summary: dict):
         info32 = rt.get(handle.method("testing_device_info")(), timeout=60)
         ctrl_pid, ctrl_env = actor_env(ctrl)
         reqs = rt_witness_requests(cfg32.vocab_size)
-        served = [sd_stream(handle, r)[0] for r in reqs]
+        served = [stream_request(handle, r)[0] for r in reqs]
         local = LLMServer(cfg32, EngineConfig(**LLM_F32_ENGINE), seed=1)
         try:
             in_process = [flat(local.generate(r)) for r in reqs]
@@ -2252,7 +2159,7 @@ def phase_serve_deployment(torch, A, L, smi: str, serve_summary: dict):
         t0 = time.perf_counter()
         resumes0 = STREAM_RESUMES._values.get(("llm32",), 0.0)
         rt.get(handle.method("testing_arm_replica_chaos")(CHAOS_SPEC, CHAOS_SEED), timeout=60)
-        toks, times = sd_stream(handle, dict(reqs[1], request_id="killed"))
+        toks, times = stream_request(handle, dict(reqs[1], request_id="killed"))
         gaps = [b - a for a, b in zip(times, times[1:])]
         cut = max(range(len(gaps)), key=gaps.__getitem__)
         status = rt.get(ctrl.wait_status.remote("llm32", min_replicas=1, timeout_s=300),
@@ -2296,7 +2203,7 @@ def phase_serve_deployment(torch, A, L, smi: str, serve_summary: dict):
         bound_reqs = [{"prompt": [3, 1, 4, 1, 5, 9, 2, 6], "max_new_tokens": 12},
                       {"prompt": [2, 7, 1, 8, 2, 8], "max_new_tokens": 12,
                        "temperature": 0.8, "seed": 7}]
-        served_p = [sd_stream(handle, r)[0] for r in bound_reqs]
+        served_p = [stream_request(handle, r)[0] for r in bound_reqs]
         local = LLMServer(tiny, EngineConfig(warmup=False), params=tiny_params,
                           export_metrics=False)
         try:
@@ -2342,7 +2249,7 @@ def phase_serve_deployment(torch, A, L, smi: str, serve_summary: dict):
         ready_s = time.perf_counter() - t0
         resumes0 = STREAM_RESUMES._values.get(("llm7b",), 0.0)
         t0 = time.perf_counter()
-        results = serve_traffic(torch, HandleClient(handle), cfg, seed=13)
+        results = serve_traffic(HandleClient(handle), cfg.vocab_size, seed=13)
         wall_s = time.perf_counter() - t0
         stats = rt.get(handle.method("engine_stats")(), timeout=60)
         info = rt.get(handle.method("testing_device_info")(), timeout=60)
@@ -2787,7 +2694,7 @@ def kv_tier_cluster(torch, L, smi, sd_gap_s):
     info0 = rt.get(handle.method("testing_device_info")(), timeout=60)
     # a warm request publishes the shared blocks; the gossip carries them
     # to the router before the kill
-    sd_stream(handle, {"prompt": shared + [5], "max_new_tokens": 2})
+    stream_request(handle, {"prompt": shared + [5], "max_new_tokens": 2})
     time.sleep(1.0)
     adverts0 = rt.get(handle.method("routing_stats")(), timeout=60)["kv_tier"]
 
@@ -2796,7 +2703,7 @@ def kv_tier_cluster(torch, L, smi, sd_gap_s):
 
         def run(i):
             try:
-                out[i] = sd_stream(handle, requests[i])
+                out[i] = stream_request(handle, requests[i])
             except Exception as e:  # noqa: BLE001 — re-raised below
                 errors.append(e)
 
@@ -5401,7 +5308,7 @@ def phase_controller_failover(torch, L, smi: str):
                          for text in tel["nodes"].values())
             books_b = cf_books(rt)
             probe_pending_b = not rt.wait([probe], timeout=0)[0]
-            after = sd_stream(handle, dict(reqs[0], request_id="cf-after"))[0]
+            after = stream_request(handle, dict(reqs[0], request_id="cf-after"))[0]
             info_b = rt.get(handle.method("testing_device_info")(), timeout=60)
             replicas_b = cf_replicas()
             apps_b = compute_apps()
@@ -5494,27 +5401,6 @@ def phase_controller_failover(torch, L, smi: str):
           f"used {used_before} -> {used_after}")
 
 
-def bytecode_cache() -> None:
-    """Python on the card's machine runs with ``PYTHONDONTWRITEBYTECODE=1``
-    and no cached bytecode for torch, so every process the script starts
-    would compile torch's modules anew as it imports them. The script's
-    processes share one bytecode cache under the checkout instead
-    (``_build``, which git ignores): this process writes it, the workers
-    it starts read it. Phase ``device`` prints this process's import of
-    torch beside one in a new process that reads the cache."""
-    import os
-
-    package = Path(__file__).resolve().parent / "ray_tpu_torch"
-    if not package.is_dir():
-        return  # not a checkout: main fails at its first import of the port
-    cache = package / "_build" / "pycache"
-    cache.mkdir(parents=True, exist_ok=True)
-    os.environ["PYTHONPYCACHEPREFIX"] = str(cache)
-    os.environ.pop("PYTHONDONTWRITEBYTECODE", None)
-    sys.pycache_prefix = str(cache)
-    sys.dont_write_bytecode = False
-
-
 def main() -> int:
     bytecode_cache()
     t0 = time.perf_counter()
@@ -5532,7 +5418,7 @@ def main() -> int:
 
     torch.backends.cuda.matmul.allow_tf32 = False  # the plain versions' f32 matmuls in full f32
     torch.backends.cudnn.allow_tf32 = False
-    smi = nvidia_smi()
+    smi = nvidia_smi().splitlines()[0]
     name = torch.cuda.get_device_name(0)
     count = torch.cuda.device_count()
     t0 = time.perf_counter()

@@ -121,9 +121,14 @@ def iter_device_batches(
     ``sharding``: None puts each column on ``cuda``; a device (``"cpu"``,
     ``"cuda:1"``) puts it there; ``(mesh, placements)`` puts this rank's
     rows on the mesh's device and makes each column a DTensor of them
-    (``DTensor.from_local`` on ``placement_mesh(mesh)``, whose placements
-    ``sharding.spec_placements`` gives: the global batch is every rank's
-    rows, in rank order along the sharded dims)."""
+    on ``placement_mesh(mesh)``, whose placements ``sharding.spec_placements``
+    gives. The global batch is every rank's rows in rank order: each rank
+    holds its own rows as a shard of it, and a mesh dim the placements do
+    not shard the batch over (the ``tensor`` axis under ``tp``, the ``seq``
+    axis, which shards the sequence) gathers its ranks' rows first, so the
+    ranks of that dim hold the same rows, as a replicated placement says
+    (one process reads one shard of the dataset, where the JAX package's
+    one controller puts the whole batch)."""
     import numpy as np
     import torch
 
@@ -139,9 +144,12 @@ def iter_device_batches(
         else:
             t = t.to(device)
         if mesh is not None:
-            from torch.distributed.tensor import DTensor
+            from torch.distributed.tensor import DTensor, Shard
 
-            t = DTensor.from_local(t, mesh, placements, run_check=False)
+            rows = (Shard(0),) * mesh.ndim
+            t = DTensor.from_local(t, mesh, rows, run_check=False)
+            if placements != rows:
+                t = t.redistribute(mesh, placements)
         return t
 
     def put(b: Block):

@@ -441,6 +441,38 @@ def _attention(cfg: LlamaConfig, q, k, v, mesh, kv_repeat: int):
     return DTensor.from_local(attend(ql, kl, vl), q.device_mesh, q.placements, run_check=False)
 
 
+def _project(eq: str, x, w):
+    """``torch.einsum(eq, x, w)`` for a projection of a ``[batch, seq, ...]``
+    activation (``eq`` of the form ``"bs...,...->bs..."``). einsum folds
+    batch and sequence into one dim, and torch 2.11's DTensor folds two dims
+    only when the inner one is whole ("Attempted to flatten multiple
+    dimensions, with dimension 1 being sharded"), so an activation with its
+    sequence sharded and its batch whole is projected sequence-first."""
+    from torch.distributed.tensor import DTensor
+
+    if isinstance(x, DTensor):
+        sharded = {p.dim for p in x.placements if p.is_shard()}
+        if 1 in sharded and 0 not in sharded:
+            xt = _ContiguousGrad.apply(x).transpose(0, 1).contiguous()
+            out = _ContiguousGrad.apply(torch.einsum(eq.replace("bs", "sb"), xt, w))
+            return out.transpose(0, 1).contiguous()
+    return torch.einsum(eq, x, w)
+
+
+class _ContiguousGrad(torch.autograd.Function):
+    """Identity whose backward hands on a contiguous gradient: DTensor runs
+    einsum's backward views on the local shards, which a transposed
+    gradient cannot take."""
+
+    @staticmethod
+    def forward(ctx, x):
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad.contiguous()
+
+
 def _repeat_heads(x, rep: int):
     """``[B, S, Hk, hd]`` -> ``[B, S, Hk * rep, hd]``, each kv head repeated
     ``rep`` times in place (``jnp.repeat``); expand + reshape, which DTensor
@@ -462,9 +494,9 @@ def _attention_block(cfg: LlamaConfig, p, x, cos, sin, mesh=None, rules=None):
         # sequence-parallel pre-repeat, here for every impl)
         wk, wv = (constrain(w, mesh, rules, ("embed", None, "head_dim")) for w in (wk, wv))
         kv_axis = "act_heads"
-    q = torch.einsum("bsd,dhk->bshk", h, p.wq)
-    k = torch.einsum("bsd,dhk->bshk", h, wk)
-    v = torch.einsum("bsd,dhk->bshk", h, wv)
+    q = _project("bsd,dhk->bshk", h, p.wq)
+    k = _project("bsd,dhk->bshk", h, wk)
+    v = _project("bsd,dhk->bshk", h, wv)
     if pre_repeat:
         k, v = _repeat_heads(k, rep), _repeat_heads(v, rep)
     # attention ENTRY pin: q/k/v leave the projection in the head-sharded
@@ -478,7 +510,7 @@ def _attention_block(cfg: LlamaConfig, p, x, cos, sin, mesh=None, rules=None):
     o = _attention(cfg, q, k, v, mesh, 1 if pre_repeat else rep)
     # attention EXIT pin; the flash output is what selective remat saves
     o = constrain(o, mesh, rules, ("act_batch", "act_seq", "act_heads", None))
-    out = x + torch.einsum("bshk,hkd->bsd", o.to(x.dtype), p.wo)
+    out = x + _project("bshk,hkd->bsd", o.to(x.dtype), p.wo)
     return constrain(out, mesh, rules, ("act_batch", "act_seq", "act_embed"))
 
 
@@ -499,13 +531,13 @@ def _mlp_block(cfg: LlamaConfig, p, x, mesh=None, rules=None):
             out, aux = moe_ffn_sharded(params, h, mesh, **kw)
         out = constrain(x + out, mesh, rules, ("act_batch", "act_seq", "act_embed"))
         return out, aux["aux_loss"]
-    gate = torch.einsum("bsd,dm->bsm", h, p.w_gate)
-    up = torch.einsum("bsd,dm->bsm", h, p.w_up)
+    gate = _project("bsd,dm->bsm", h, p.w_gate)
+    up = _project("bsd,dm->bsm", h, p.w_up)
     # Megatron split: the hidden activation shards over tensor, the
     # down-projection's output all-reduces back to the replicated stream
     gate = constrain(gate, mesh, rules, ("act_batch", "act_seq", "act_mlp"))
     up = constrain(up, mesh, rules, ("act_batch", "act_seq", "act_mlp"))
-    out = x + torch.einsum("bsm,md->bsd", F.silu(gate) * up, p.w_down)
+    out = x + _project("bsm,md->bsd", F.silu(gate) * up, p.w_down)
     return constrain(out, mesh, rules, ("act_batch", "act_seq", "act_embed")), None
 
 
@@ -586,7 +618,7 @@ def forward(cfg: LlamaConfig, params: Llama, tokens, *, remat=False, mesh=None, 
         if layer_aux is not None:
             aux = layer_aux if aux is None else aux + layer_aux
     x = rms_norm(x, params.final_norm, cfg.norm_eps)
-    logits = torch.einsum("bsd,dv->bsv", x, params.lm_head).float()
+    logits = _project("bsd,dv->bsv", x, params.lm_head).float()
     logits = constrain(logits, mesh, rules, ("act_batch", "act_seq", "act_vocab"))
     if not return_aux:
         return logits

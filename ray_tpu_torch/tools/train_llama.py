@@ -17,8 +17,11 @@ Config keys: ``model`` (``LlamaConfig`` fields, with ``preset``
 ``"tiny"`` or ``"llama2_7b"`` and ``dtype`` named as a string), ``seed``,
 ``lr``, ``remat``, ``batch_size`` (rows per rank per step),
 ``checkpoint_every`` (steps; rank 0 attaches ``host_state`` and the
-losses so far to that step's report) and ``fail_at_step`` (the worker raises before that step when it did not
-resume from a checkpoint: the failure a gang restart recovers from).
+losses so far to that step's report), ``fail_at_step`` (the worker raises before that step when it did not
+resume from a checkpoint: the failure a gang restart recovers from) and
+``profile_step`` (on the card, rank 0 runs that step under
+``torch.profiler`` and adds its device time, NCCL's kernels apart from the
+rest, to the step's report as ``profile``).
 
 Each step reports ``step``, ``loss`` and ``step_ms`` (host clock, after a
 device synchronise on the card); the last report carries the run's losses
@@ -96,6 +99,12 @@ def llama_train_loop(config: dict) -> None:
             continue
         if i == config.get("fail_at_step") and resumed is None:
             raise RuntimeError(f"injected worker failure before step {i}")
+        profiler = None
+        if on_card and rank == 0 and i == config.get("profile_step"):
+            acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+            profiler = torch.profiler.profile(activities=acts)
+            torch.cuda.synchronize()
+            profiler.__enter__()
         t0 = time.perf_counter()
         state, loss = step(state, batch)
         loss = float(loss)  # waits for the step
@@ -106,6 +115,9 @@ def llama_train_loop(config: dict) -> None:
         losses.append(loss)
         step_ms_each.append(step_ms)
         metrics = {"step": i, "loss": loss, "step_ms": step_ms}
+        if profiler is not None:
+            profiler.__exit__(None, None, None)
+            metrics["profile"] = device_split(profiler, step_ms)
         checkpoint = None
         if every and (i + 1) % every == 0:
             host = L.host_state(model, opt)  # a collective: every rank gathers
@@ -126,6 +138,24 @@ def llama_train_loop(config: dict) -> None:
         "launches_by_route": {fn.__name__: dict(fn.route_launches) for fn in A.KERNELS},
         "max_memory_allocated_bytes": torch.cuda.max_memory_allocated() if on_card else None,
     })
+
+
+def device_split(prof, wall_ms: float) -> dict:
+    """A profiled step's device time (ms): NCCL's kernels, the rest, and
+    their sum against the step's wall time (``tools/profile_train_step.py``
+    counts kernels the same way). NCCL's kernels run on their own stream
+    and may overlap the rest."""
+    from ray_tpu_torch.tools.profile_train_step import _device_us
+
+    kernels = [e for e in prof.key_averages()
+               if e.device_type.name == "CUDA" and _device_us(e) > 0
+               and not getattr(e, "is_user_annotation", False) and "#" not in e.key]
+    nccl = sum(_device_us(e) for e in kernels if "nccl" in e.key.lower()) / 1e3
+    rest = sum(_device_us(e) for e in kernels if "nccl" not in e.key.lower()) / 1e3
+    top = sorted(kernels, key=_device_us, reverse=True)[:8]
+    return {"wall_ms": wall_ms, "nccl_ms": nccl, "compute_ms": rest, "device_ms": nccl + rest,
+            "top": [{"kernel": e.key[:80], "ms": _device_us(e) / 1e3, "calls": e.count}
+                    for e in top]}
 
 
 def main(argv=None) -> int:

@@ -62,23 +62,29 @@ class TorchBackendConfig(BackendConfig):
     size) and the same canonical rules table ("ddp" | "fsdp" | "tp"), the
     one named-sharding source of truth the constrained train step
     (``models/llama.py::make_train_step``) derives every param, grad and
-    optimizer-state placement from."""
+    optimizer-state placement from.
+
+    timeout_s: how long a collective of the gang's group may wait before
+    the group fails (Ray's ``TorchConfig.timeout_s``); None keeps torch's
+    default."""
 
     distributed: Optional[bool] = None
     platform: Optional[str] = None
     extra_env: Optional[Dict[str, str]] = None
     mesh_spec: Optional[MeshSpec] = None
     sharding: Optional[str] = None  # "ddp" | "fsdp" | "tp"
+    timeout_s: Optional[float] = None
 
     def backend_cls(self):
         return TorchBackend
 
 
-def _torch_distributed_init(backend: str, context) -> None:
+def _torch_distributed_init(backend: str, context, timeout_s: Optional[float] = None) -> None:
     """Runs inside each worker, before the user loop (setup_fn): joins the
     gang's process group at ``MASTER_ADDR:MASTER_PORT`` (rank 0's), after
     leaving any group an earlier run left in this process."""
     import os
+    from datetime import timedelta
 
     if not os.environ.get("MASTER_ADDR"):
         return
@@ -94,7 +100,8 @@ def _torch_distributed_init(backend: str, context) -> None:
                                "TorchBackendConfig(platform='cpu') to train on the CPU")
         torch.cuda.set_device(0)  # the worker's one visible GPU
     dist.init_process_group(
-        backend, init_method="env://", world_size=context.world_size, rank=context.world_rank
+        backend, init_method="env://", world_size=context.world_size, rank=context.world_rank,
+        timeout=None if timeout_s is None else timedelta(seconds=timeout_s),
     )
 
 
@@ -121,7 +128,8 @@ class TorchBackend(Backend):
         if env:
             worker_group.execute("set_env", env, timeout=30)
         self._setup = functools.partial(
-            _torch_distributed_init, "gloo" if backend_config.platform == "cpu" else "nccl"
+            _torch_distributed_init, "gloo" if backend_config.platform == "cpu" else "nccl",
+            timeout_s=backend_config.timeout_s,
         )
 
     def on_shutdown(self, worker_group: WorkerGroup, backend_config: TorchBackendConfig) -> None:

@@ -11,15 +11,21 @@ tensor=2)`` under tp, where DTensor nests the batch over two mesh dims, as
 the tensor ranks (K/V are gathered and repeated to the 4 q heads), and as
 ``(data=2, expert=2)`` under tp on the tiny MoE config with capacity
 factor 0.5, so that tokens drop and routing each rank's tokens apart (its
-own capacity, its own arrival order) would show; 8 processes as the JAX
+own capacity, its own arrival order) would show, as ``(seq=2, tensor=2)``
+under tp with ring attention (the 4-device mesh of the JAX package's
+``__graft_entry__.dryrun_multichip``, ``_factor_mesh(4)``), as ``seq=4``
+under tp with ring and with Ulysses (4 tokens a rank; Ulysses repeats the 2
+KV heads to the 4 q heads), and as ``expert=4`` under tp on the MoE config
+(one expert a rank), these four in a second group of 4 processes
+(``SECOND_GROUP``); 8 processes as the JAX
 package's own sharding mesh, ``(data=2, fsdp=2, tensor=2)``
 (``test_sharding_rules.py``), once under each rule table. Each group is
 started once (a module-scoped fixture): the file runs itself as each rank
 (``python tests/test_torch_sharded_step.py --worker ...``), loads the
 JAX-initialised tiny Llama of each case's config (``params_from_jax``),
 shards it, runs 3 steps per case and writes its readings; rank 0's
-readings come back here (one group of each size a test run: the xdist
-workers share its readings). The unsharded references run each case's config
+readings come back here (each group once a test run: the xdist workers
+share its readings). The unsharded references run each case's config
 with its attention impl dropped (ring and Ulysses compute the same
 function as flash attention).
 
@@ -60,10 +66,17 @@ CASES = (
     ("data2-tensor2-tp", 4, {"data": 2, "tensor": 2}, "tp", ()),
     ("tensor4-tp", 4, {"tensor": 4}, "tp", ()),
     ("data2-expert2-tp-moe", 4, {"data": 2, "expert": 2}, "tp", MOE),
+    ("seq2-tensor2-tp-ring", 4, {"seq": 2, "tensor": 2}, "tp", (("attention_impl", "ring"),)),
+    ("seq4-tp-ring", 4, {"seq": 4}, "tp", (("attention_impl", "ring"),)),
+    ("seq4-tp-ulysses", 4, {"seq": 4}, "tp", (("attention_impl", "ulysses"),)),
+    ("expert4-tp-moe", 4, {"expert": 4}, "tp", MOE),
     ("data2-fsdp2-tensor2-ddp", 8, {"data": 2, "fsdp": 2, "tensor": 2}, "ddp", ()),
     ("data2-fsdp2-tensor2-fsdp", 8, {"data": 2, "fsdp": 2, "tensor": 2}, "fsdp", ()),
     ("data2-fsdp2-tensor2-tp", 8, {"data": 2, "fsdp": 2, "tensor": 2}, "tp", ()),
 )
+#: world-4 cases run in a second group of 4, so that neither group nears
+#: ``_run_group``'s wait when the box is loaded
+SECOND_GROUP = ("seq2-tensor2-tp-ring", "seq4-tp-ring", "seq4-tp-ulysses", "expert4-tp-moe")
 
 
 def _params_key(overrides) -> tuple:
@@ -72,8 +85,14 @@ def _params_key(overrides) -> tuple:
     return tuple(kv for kv in overrides if kv[0] != "attention_impl")
 
 
-def _worker(rank: int, world: int, port: int, inputs: str, out: str) -> None:
-    """One rank: every case of its world size, 3 selective-remat steps each."""
+def _group(case: str) -> str:
+    """The name of the group of processes a case runs in."""
+    size = {c[0]: c[1] for c in CASES}[case]
+    return f"world{size}" + ("b" if case in SECOND_GROUP else "")
+
+
+def _worker(rank: int, world: int, port: int, inputs: str, out: str, group: str) -> None:
+    """One rank: every case of its group, 3 selective-remat steps each."""
     import torch.distributed as dist
 
     from ray_tpu_torch.models import llama as tl
@@ -88,7 +107,7 @@ def _worker(rank: int, world: int, port: int, inputs: str, out: str) -> None:
     batch = {k: torch.from_numpy(v) for k, v in data["batch"].items()}
     readings = {}
     for case, size, axes, table, overrides in CASES:
-        if size != world:
+        if _group(case) != group:
             continue
         cfg = tl.LlamaConfig.tiny(**dict(overrides))
         mesh = tmesh.make_mesh(tmesh.MeshSpec(**axes), "cpu")
@@ -174,11 +193,11 @@ def _once_per_run(request, tmp_path_factory, name: str, run) -> dict:
         return pickle.load(f)
 
 
-def _run_group(world: int, inputs_path: str, out: Path) -> None:
+def _run_group(world: int, inputs_path: str, out: Path, group: str) -> None:
     port = _free_port()
     env = dict(os.environ, OMP_NUM_THREADS="1", PYTHONPATH=str(ROOT))
     procs = [subprocess.Popen([sys.executable, __file__, "--worker", str(r), str(world), str(port),
-                               inputs_path, str(out)],
+                               inputs_path, str(out), group],
                               cwd=ROOT, env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT)
              for r in range(world)]
     logs = []
@@ -197,19 +216,25 @@ def _run_group(world: int, inputs_path: str, out: Path) -> None:
 @pytest.fixture(scope="module")
 def world2(request, inputs, tmp_path_factory):
     return _once_per_run(request, tmp_path_factory, "world2",
-                         lambda out: _run_group(2, inputs[0], out))
+                         lambda out: _run_group(2, inputs[0], out, "world2"))
 
 
 @pytest.fixture(scope="module")
 def world4(request, inputs, tmp_path_factory):
     return _once_per_run(request, tmp_path_factory, "world4",
-                         lambda out: _run_group(4, inputs[0], out))
+                         lambda out: _run_group(4, inputs[0], out, "world4"))
+
+
+@pytest.fixture(scope="module")
+def world4b(request, inputs, tmp_path_factory):
+    return _once_per_run(request, tmp_path_factory, "world4b",
+                         lambda out: _run_group(4, inputs[0], out, "world4b"))
 
 
 @pytest.fixture(scope="module")
 def world8(request, inputs, tmp_path_factory):
     return _once_per_run(request, tmp_path_factory, "world8",
-                         lambda out: _run_group(8, inputs[0], out))
+                         lambda out: _run_group(8, inputs[0], out, "world8"))
 
 
 @pytest.fixture
@@ -218,8 +243,7 @@ def readings(request):
     started only by a test process that runs one of its cases)."""
     callspec = getattr(request.node, "callspec", None)
     case = callspec.params["case"] if callspec else "fsdp2-fsdp"
-    world = {c[0]: c[1] for c in CASES}[case]
-    return request.getfixturevalue(f"world{world}")
+    return request.getfixturevalue(_group(case))
 
 
 @pytest.fixture(scope="module")
@@ -360,4 +384,4 @@ def test_shard_params_fsdp(readings):
 
 if __name__ == "__main__" and sys.argv[1:2] == ["--worker"]:
     _rank, _world, _port = (int(a) for a in sys.argv[2:5])
-    _worker(_rank, _world, _port, sys.argv[5], sys.argv[6])
+    _worker(_rank, _world, _port, sys.argv[5], sys.argv[6], sys.argv[7])
