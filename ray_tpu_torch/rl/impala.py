@@ -48,6 +48,9 @@ class IMPALAConfig:
     #: the learner's device: the card unless this names another ("cpu");
     #: the reference's default is "cpu"
     learner_platform: Optional[str] = None
+    #: how long a collective of the learner gang may wait before it fails
+    #: (``LearnerGroup(timeout_s=)``); None keeps torch's default
+    learner_timeout_s: Optional[float] = None
     runner_resources: Dict[str, float] = field(default_factory=lambda: {"CPU": 0.5})
 
     def build(self) -> "IMPALA":
@@ -151,6 +154,7 @@ class IMPALA:
                 init_fn=init_state,
                 update_builder=lambda: update,
                 platform=config.learner_platform,
+                timeout_s=config.learner_timeout_s,
             )
             self._state = None
         else:

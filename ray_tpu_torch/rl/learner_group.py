@@ -26,7 +26,10 @@ group through the port's rendezvous (``train/backend.py``'s
 (the reference's to ``"cpu"``), where each learner leases one GPU
 (``resources_per_learner`` defaults to ``{"GPU": 1}``) and sees it as
 ``cuda:0`` through the ``CUDA_VISIBLE_DEVICES`` the node daemon sets.
-Params and state leave a learner as numpy snapshots.
+``timeout_s`` bounds each collective of the group (``TorchBackendConfig``'s
+``timeout_s``; None keeps torch's default). Params and state leave a
+learner as numpy snapshots. ``shutdown`` asks every learner to leave the
+group at once: an nccl teardown may wait for the gang's other ranks.
 """
 
 from __future__ import annotations
@@ -42,10 +45,12 @@ import ray_tpu_torch
 class _LearnerWorker:
     """One gang member. Defined undecorated for by-reference pickling."""
 
-    def __init__(self, rank: int, world: int, platform: Optional[str]):
+    def __init__(self, rank: int, world: int, platform: Optional[str],
+                 timeout_s: Optional[float]):
         self._rank = rank
         self._world = world
         self._platform = platform
+        self._timeout_s = timeout_s
         self._device = None
         self._state = None
         self._update = None
@@ -80,9 +85,11 @@ class _LearnerWorker:
             _torch_distributed_init(
                 "gloo" if self._device.type == "cpu" else "nccl",
                 types.SimpleNamespace(world_size=self._world, world_rank=self._rank),
+                timeout_s=self._timeout_s,
             )
         return {
             "rank": self._rank,
+            "pid": os.getpid(),
             "device": str(self._device),
             "cuda_visible_devices": os.environ.get("CUDA_VISIBLE_DEVICES"),
             "device_name": (torch.cuda.get_device_name(0)
@@ -147,6 +154,10 @@ class _LearnerWorker:
 
 LearnerWorker = ray_tpu_torch.remote(_LearnerWorker)
 
+#: how long ``LearnerGroup.shutdown`` waits for the whole gang to leave its
+#: group before it kills the learners
+SHUTDOWN_TIMEOUT_S = 30.0
+
 
 class LearnerGroup:
     """The caller's handle on the learner gang."""
@@ -159,6 +170,7 @@ class LearnerGroup:
         update_builder: Callable[[], Callable],
         platform: Optional[str] = None,
         resources_per_learner: Optional[Dict[str, float]] = None,
+        timeout_s: Optional[float] = None,
     ):
         self.num_learners = max(1, num_learners)
         if resources_per_learner is None:
@@ -167,7 +179,7 @@ class LearnerGroup:
         num_cpus = res.pop("CPU", 1.0)
         self._learners = [
             LearnerWorker.options(num_cpus=num_cpus, resources=res or None).remote(
-                rank, self.num_learners, platform
+                rank, self.num_learners, platform, timeout_s
             )
             for rank in range(self.num_learners)
         ]
@@ -220,11 +232,21 @@ class LearnerGroup:
         )
 
     def shutdown(self) -> None:
+        """Every learner leaves the group at once (an nccl teardown returns
+        only once the gang's other ranks have entered it), all under one
+        deadline of ``SHUTDOWN_TIMEOUT_S``; then each is killed."""
+        refs = []
         for l in self._learners:
             try:
-                ray_tpu_torch.get(l.shutdown.remote(), timeout=30)
+                refs.append(l.shutdown.remote())
             except Exception:
                 pass
+        if refs:
+            try:
+                ray_tpu_torch.wait(refs, num_returns=len(refs), timeout=SHUTDOWN_TIMEOUT_S)
+            except Exception:
+                pass
+        for l in self._learners:
             try:
                 ray_tpu_torch.kill(l)
             except Exception:

@@ -45,7 +45,9 @@ part has run. Parts:
     ``IMPALA.learn``, then one ``IMPALA.train()`` of the gang with its env
     runners; and DQN on the Atari Q-net and PPO on a ``LearnerGroup`` this
     script builds around their update functions (neither algorithm runs a
-    gang of its own), against one learner in this process;
+    gang of its own), against one learner in this process; each gang's
+    holds are emitted before its teardown, then the teardown's seconds
+    (one ``LearnerGroup.shutdown`` deadline for the whole gang);
 (e) full Llama-2-7B served by two replicas behind the router, one SIGKILLed
     mid-stream (f32, 2 layers, streams exact), and by disaggregated prefill
     and decode pools, each pool on its own card.
@@ -87,6 +89,9 @@ LOSS_RTOL, GRAD_REL_NORM, PARAM_RTOL, LR = 2e-4, 1e-5, 2e-4, 1e-3
 BF16_RTOL = 2.0 ** -8
 #: the learner gang against one learner: f32 stats relative, params in lr
 RL_STATS_RTOL, RL_PARAMS_LR_FRACTION = 1e-4, 0.05
+#: a learner gang's teardown: one ``LearnerGroup`` shutdown deadline (30 s
+#: for the whole gang) and the kills after it
+TEARDOWN_BOUND_S = 35.0
 TIMED_STEPS, WARM_STEPS = 10, 2
 
 #: (case, mesh axes, rules table, kind): the rules-constrained step on a
@@ -961,6 +966,8 @@ def part_c(run: Run, cluster, names) -> None:
     del model, t
     _free(torch)
     fwd_s = time.perf_counter() - t0
+    # the gang trains in the dtype of the one-card forward's config
+    dtype = str(cfg.dtype).removeprefix("torch.")
     preset = {"preset": "tiny" if tiny else "llama2_7b", "dtype": dtype}
     loop = {"model": preset, "seed": 0, "lr": 1e-4, "remat": "selective",
             "batch_size": per_rank, "profile_step": steps - 1}
@@ -1146,36 +1153,45 @@ def impala_gang(run: Run) -> tuple:
     env = {} if gym else {"env": "ray_tpu_torch.tools.multi_card_smoke:CartPoleSpec",
                           "num_env_runners": 0}
     t0 = time.perf_counter()
-    gang = IMPALAConfig(num_learners=WORLD, learner_platform=platform, **env).build()
+    gang = IMPALAConfig(num_learners=WORLD, learner_platform=platform,
+                        learner_timeout_s=GROUP_TIMEOUT.total_seconds(), **env).build()
     start_s = time.perf_counter() - t0
     one = IMPALAConfig(num_learners=1, learner_platform=platform, **env).build()
     rows, update_s = [], []
     try:
         for i in range(4):
             b = _impala_batch(16, 64, 50 + i)
-            one.set_state(gang.get_state())
-            ref = one.learn(b)
             t1 = time.perf_counter()
+            state = gang.get_state()
+            t2 = time.perf_counter()
+            one.set_state(state)
+            ref = one.learn(b)
+            t3 = time.perf_counter()
             got = gang.learn(b)
-            update_s.append(time.perf_counter() - t1)
+            t4 = time.perf_counter()
+            after = gang.get_state()
+            update_s.append(t4 - t3)
             diff = max(float(np.max(np.abs(x - y))) for x, y in zip(
-                tree_leaves(gang.get_state()["state"][0]), tree_leaves(one.get_state()["state"][0])))
+                tree_leaves(after["state"][0]), tree_leaves(one.get_state()["state"][0])))
             rows.append({"stats": got, "one_learner_stats": ref,
                          "stats_max_rel_diff": max(abs(got[k] - ref[k]) / max(abs(ref[k]), 1e-12)
                                                    for k in ref),
-                         "params_max_abs_diff_over_lr": diff / gang.config.lr})
+                         "params_max_abs_diff_over_lr": diff / gang.config.lr,
+                         "seconds": {"get_state": t2 - t1, "one_learner": t3 - t2,
+                                     "get_state_after": time.perf_counter() - t4}})
         trained = gang.train() if gym else None
         learners = gang._group.learner_info
+        worst = {k: max(r[k] for r in rows)
+                 for k in ("stats_max_rel_diff", "params_max_abs_diff_over_lr")}
+        emit({"phase": "d_learners", "algo": "impala",
+              "entry": "IMPALAConfig(num_learners=4).build()",
+              "updates": rows, "global_batch": [16, 64], **worst,
+              "tol": {"stats_rtol": RL_STATS_RTOL, "params_lr_fraction": RL_PARAMS_LR_FRACTION},
+              "gang_update_s": update_s, "start_s": start_s, "env": gang.config.env,
+              "train": trained, "learners": learners, "nvidia_smi": run.smi})
     finally:
-        gang.stop()
+        teardown_s = _teardown("impala", gang.stop, run)
         one.stop()
-    worst = {k: max(r[k] for r in rows)
-             for k in ("stats_max_rel_diff", "params_max_abs_diff_over_lr")}
-    emit({"phase": "d_learners", "algo": "impala", "entry": "IMPALAConfig(num_learners=4).build()",
-          "updates": rows, "global_batch": [16, 64], **worst,
-          "tol": {"stats_rtol": RL_STATS_RTOL, "params_lr_fraction": RL_PARAMS_LR_FRACTION},
-          "gang_update_s": update_s, "start_s": start_s, "env": gang.config.env,
-          "train": trained, "learners": learners, "nvidia_smi": run.smi})
     failed = []
     if worst["stats_max_rel_diff"] > RL_STATS_RTOL or \
             worst["params_max_abs_diff_over_lr"] > RL_PARAMS_LR_FRACTION:
@@ -1183,7 +1199,19 @@ def impala_gang(run: Run) -> tuple:
     if gym and not (trained["num_env_steps_trained"] > 0 and
             all(math.isfinite(trained[k]) for k in ("loss", "pi_loss", "vf_loss", "entropy"))):
         failed.append(("impala train()", trained))
+    if teardown_s > TEARDOWN_BOUND_S:
+        failed.append(("impala teardown_s", teardown_s))
     return learners, failed
+
+
+def _teardown(gang: str, stop, run: Run) -> float:
+    """Runs ``stop`` (the gang's teardown) and emits how long it took."""
+    t0 = time.perf_counter()
+    stop()
+    teardown_s = time.perf_counter() - t0
+    emit({"phase": "d_learners", "part": "teardown", "gang": gang, "teardown_s": teardown_s,
+          "bound_s": TEARDOWN_BOUND_S, "nvidia_smi": run.smi})
+    return teardown_s
 
 
 def built_gang(run: Run) -> tuple:
@@ -1210,7 +1238,8 @@ def built_gang(run: Run) -> tuple:
     t0 = time.perf_counter()
     group = LearnerGroup(num_learners=WORLD, init_fn=me.rl_init(run.tiny),
                          update_builder=me.rl_update_builder,
-                         platform=None if run.on_card else "cpu")
+                         platform=None if run.on_card else "cpu",
+                         timeout_s=GROUP_TIMEOUT.total_seconds())
     failed = []
     try:
         start_s = time.perf_counter() - t0
@@ -1240,10 +1269,13 @@ def built_gang(run: Run) -> tuple:
                     worst["params_max_abs_diff_over_lr"] > RL_PARAMS_LR_FRACTION:
                 failed.append((algo, worst))
         learners = group.learner_info
+        emit({"phase": "d_learners", "part": "gang", "built_by": "this script",
+              "learners": learners, "start_s": start_s, "one_learner": str(dev),
+              "nvidia_smi": run.smi})
     finally:
-        group.shutdown()
-    emit({"phase": "d_learners", "part": "gang", "built_by": "this script", "learners": learners,
-          "start_s": start_s, "one_learner": str(dev), "nvidia_smi": run.smi})
+        teardown_s = _teardown("dqn-ppo", group.shutdown, run)
+    if teardown_s > TEARDOWN_BOUND_S:
+        failed.append(("dqn-ppo teardown_s", teardown_s))
     return learners, failed
 
 

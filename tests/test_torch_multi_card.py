@@ -7,7 +7,10 @@ on GPipe over ``stage=4`` (each held to the one-process step or layer loop
 by the script's own bounds), part (c) (the trainer under ddp, tp and
 fsdp, each against the one-process step on the same global batches) and
 part (d) (IMPALA's own 4-learner gang and the DQN and PPO gang the script
-builds, each against one learner update by update). On the
+builds, each against one learner update by update, and each gang's
+teardown within one deadline) and part (e) (two replicas in f32 with one
+SIGKILLed, two bf16 replicas under ``serve_traffic``, disaggregated pools
+in f32 and bf16). On the
 card it needs four cards and refuses to run on fewer: never on fewer ranks,
 never on gloo.
 
@@ -46,7 +49,8 @@ def _parts(lines):
     ["--part", "b", "--case", "seq2-tensor2-tp-ring", "--case", "stage4-gpipe"],
     ["--part", "c"],
     ["--part", "d"],
-], ids=["collectives", "reference-mesh-and-gpipe", "trainer", "learner-gangs"])
+    ["--part", "e"],
+], ids=["collectives", "reference-mesh-and-gpipe", "trainer", "learner-gangs", "serving"])
 def test_cpu_mode_parts_pass(parts, tmp_path):
     proc, lines = _run(["--platform", "cpu", "--tiny", *parts], tmp_path)
     assert proc.returncode == 0, (proc.stdout[-3000:], proc.stderr[-3000:])
@@ -83,6 +87,25 @@ def test_cpu_mode_parts_pass(parts, tmp_path):
         impala = algos["impala"]
         assert [w["rank"] for w in impala["learners"]] == [0, 1, 2, 3]
         assert impala["train"]["num_env_steps_trained"] > 0
+        # each gang reports its holds before it tears down, then its teardown
+        teardowns = {line["gang"]: line["teardown_s"] for line in lines
+                     if line.get("phase") == "d_learners" and line.get("part") == "teardown"}
+        assert sorted(teardowns) == ["dqn-ppo", "impala"]
+        assert all(t <= 35.0 for t in teardowns.values()), teardowns
+    if "e" in asked:
+        serving = {line["part"]: line for line in lines if line.get("phase") == "e_serve"}
+        assert sorted(serving) == ["disaggregated_bf16", "disaggregated_f32",
+                                   "two_replicas_7b", "two_replicas_f32"]
+        f32 = serving["two_replicas_f32"]
+        assert f32["streams_equal"] == [True] * 8
+        # the streams cut by the SIGKILL resumed on the survivor, equal
+        assert f32["resumed_streams_equal"] == [True] * 8 and f32["resumes"] >= 1
+        assert f32["errors"] == []
+        assert serving["disaggregated_f32"]["streams_equal"] == [True] * 8
+        assert serving["two_replicas_7b"]["answered"] == serving["two_replicas_7b"]["requests"]
+        for name in ("disaggregated_f32", "disaggregated_bf16"):
+            assert serving[name]["fallbacks"] == 0
+            assert serving[name]["transfers"] >= serving[name]["handoffs"]
 
 
 def test_refuses_without_cards(tmp_path):

@@ -292,6 +292,96 @@ def test_impala_with_learner_gang(cluster):
         algo.stop()
 
 
+def _gone(pid: int) -> bool:
+    import psutil
+
+    try:
+        return psutil.Process(pid).status() == psutil.STATUS_ZOMBIE
+    except psutil.NoSuchProcess:
+        return True
+
+
+def test_learner_gang_tears_down_within_one_deadline(cluster):
+    """A gang of four whose teardown is collective, as nccl's is on the
+    cards: each learner's ``destroy_process_group`` returns only once every
+    rank has entered it (a gloo barrier first). ``shutdown`` asks the whole
+    gang at once, so the gang ends well inside one deadline
+    (``SHUTDOWN_TIMEOUT_S``), not one deadline a learner, and no learner
+    process is left."""
+    from ray_tpu_torch.rl.learner_group import SHUTDOWN_TIMEOUT_S, LearnerGroup
+
+    def init_fn(device):
+        import torch
+        import torch.distributed as dist
+
+        destroy = dist.destroy_process_group
+
+        def collective_destroy(*args, **kwargs):
+            dist.barrier()
+            destroy(*args, **kwargs)
+
+        dist.destroy_process_group = collective_destroy
+        return (torch.zeros((4, 1), device=device),)
+
+    def update_builder():
+        def update(state, batch, mean_grads):
+            return state, {"rows": float(len(batch["x"]))}
+
+        return update
+
+    group = LearnerGroup(num_learners=4, init_fn=init_fn, update_builder=update_builder,
+                         platform="cpu")
+    pids = [info["pid"] for info in group.learner_info]
+    try:
+        assert group.update({"x": np.zeros((8, 4), np.float32)}) == {"rows": 2.0}
+    finally:
+        t0 = time.monotonic()
+        group.shutdown()
+        took = time.monotonic() - t0
+    assert took < SHUTDOWN_TIMEOUT_S / 2, took
+    deadline = time.monotonic() + 10
+    while not all(_gone(p) for p in pids) and time.monotonic() < deadline:
+        time.sleep(0.1)
+    assert [p for p in pids if not _gone(p)] == []
+
+
+def test_learner_gang_collective_times_out(cluster):
+    """``LearnerGroup(timeout_s=)`` bounds the gang's collectives: with
+    rank 1 stalled before its gradient all-reduce, rank 0's all-reduce
+    fails after the 2 s given (without it, it would wait for rank 1 and
+    the update would succeed)."""
+    from ray_tpu_torch.rl.learner_group import LearnerGroup
+
+    def init_fn(device):
+        import torch
+
+        return (torch.zeros((4, 1), device=device),)
+
+    def update_builder():
+        import time
+
+        import torch
+        import torch.distributed as dist
+
+        def update(state, batch, mean_grads):
+            if dist.get_rank() == 1:
+                time.sleep(4)
+            mean_grads([torch.ones(4)])
+            return state, {"rows": float(len(batch["x"]))}
+
+        return update
+
+    group = LearnerGroup(num_learners=2, init_fn=init_fn, update_builder=update_builder,
+                         platform="cpu", timeout_s=2)
+    try:
+        t0 = time.monotonic()
+        with pytest.raises(Exception, match="(?i)timed? ?out"):
+            group.update({"x": np.zeros((4, 4), np.float32)})
+        assert time.monotonic() - t0 < 30
+    finally:
+        group.shutdown()
+
+
 def test_replay_buffer_wraps_and_samples():
     from ray_tpu_torch.rl import ReplayBuffer
 
