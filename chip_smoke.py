@@ -10,7 +10,8 @@ JSON line on stdout:
    cache every process of the script shares (``bytecode_cache``), beside
    a new process's reading it; then the flash-attention kernels built from ``ray_tpu_torch/ops/csrc`` for
    ``sm_90a`` (build seconds, registers/spills from ``-Xptxas -v``, dynamic
-   shared memory per block); each of the three has two kernels, bf16 on the
+   shared memory per block, the tensor-core forward's at d=128 on a line
+   of its own with ptxas's notes on wgmma); each of the three has two kernels, bf16 on the
    tensor cores (``flash_fwd_tc.cu``, ``flash_bwd_dq_tc.cu``,
    ``flash_bwd_dkv_tc.cu``, none of which may spill at d=128) and f32 on the
    CUDA cores (``flash_fwd.cu``, ``flash_bwd_dq.cu``, ``flash_bwd_dkv.cu``);
@@ -446,9 +447,16 @@ def phase_build(torch):
     want = sorted((k, dt, d) for k, dt in INSTANTIATED for d in KERNEL_HEAD_DIMS)
     check(got == want, f"ptxas reported {got}, expected {want}")
     tc128 = {r["kernel"]: r for r in regs if r["kernel"].endswith("_tc_kernel") and r["d"] == 128}
+    # the forward's registers are its launch's count, which setmaxnreg then
+    # moves from the producer warpgroup to the two consumers
+    fwd = dict(tc128.get("flash_fwd_tc_kernel", {}),
+               dynamic_smem_bytes=smem["flash_fwd_tc"][128])
+    wgmma_notes = [line.strip() for line in report["ptxas"].splitlines()
+                   if "wgmma" in line or "Performance Loss" in line]
     emit({"phase": "build", "arch": "sm_90a", "library": path.name,
           "seconds": report["seconds"], "cached": report["cached"],
-          "dynamic_smem_bytes": smem, "tc_d128": tc128, "ptxas": regs})
+          "dynamic_smem_bytes": smem, "tc_d128": tc128, "fwd_tc_d128": fwd,
+          "ptxas_wgmma_notes": wgmma_notes, "ptxas": regs})
     for r in tc128.values():
         check(r["spill_bytes"] == 0, f"tensor-core kernel spills at d=128: {r}")
 
@@ -550,7 +558,8 @@ def phase_times(torch, K, A):
         times[name] = {"ms": kms, "plain_ms": pms, "bound_ms": bms, "bound_by": by,
                        "library_ms": library[name]}
         emit({"phase": "times", "kernel": name, "shape": c, "flops": flops, "bytes": nbytes,
-              **times[name], "tflops": flops / kms / 1e9})
+              **times[name], "tflops": flops / kms / 1e9, "ms_over_bound": kms / bms,
+              "ms_over_library": kms / library[name]})
     # like for like: one SDPA backward call computes dq, dk and dv together,
     # so the pair is held to that function's bound
     pair = {k: sum(times[n][k] for n in ("flash_bwd_dq", "flash_bwd_dkv"))

@@ -123,7 +123,8 @@ def library() -> ctypes.CDLL:
 
 
 def ptxas_summary(report: str) -> list:
-    """Registers and spill bytes per kernel instantiation from -Xptxas -v."""
+    """Registers and spill bytes per kernel instantiation from -Xptxas -v.
+    The tensor-core kernels (``*_tc_kernel``) are bf16, the others f32."""
     rows, name = [], None
     for line in report.splitlines():
         m = re.search(r"Compiling entry function '(\S+)'", line)
@@ -131,7 +132,8 @@ def ptxas_summary(report: str) -> list:
             sym = m.group(1)
             kind = re.search(r"(flash_\w+?_kernel)", sym)
             dim = re.search(r"Li(\d+)E", sym)
-            name = (kind.group(1) if kind else sym, "bf16" if "bfloat16" in sym else "f32",
+            tc = "bfloat16" in sym or bool(kind and kind.group(1).endswith("_tc_kernel"))
+            name = (kind.group(1) if kind else sym, "bf16" if tc else "f32",
                     int(dim.group(1)) if dim else None)
             spill = None
         m = re.search(r"(\d+) bytes spill stores", line)

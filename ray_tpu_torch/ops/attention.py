@@ -46,7 +46,7 @@ _KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 # ---------------------------------------------------------------------------
 # block validation, copied from the JAX op so that the port accepts exactly
 # the shapes it accepts. The tables are sized for TPU VMEM and do not bind
-# the CUDA tiles (64 x 64, ragged edges masked).
+# the CUDA kernels' own tiles (ragged edges masked).
 
 
 def default_blocks(seq_q: int) -> tuple:
@@ -236,8 +236,9 @@ fwd_route = kernel_route
 
 def _route(name: str, tensors, d: int) -> tuple:
     """Check a wrapper's inputs; return its dtype code and route. The
-    tensor-core kernels copy 16-byte chunks, so their inputs must start on
-    a 16-byte boundary."""
+    tensor-core kernels read 16-byte chunks (the forward by TMA, whose
+    tensor maps take 16-byte aligned addresses), so their inputs must start
+    on a 16-byte boundary."""
     dtype = _check_kernel_inputs(name, tensors, d)
     route = kernel_route(tensors[0].dtype)
     if route == "tensor_core" and any(x.data_ptr() % 16 for x in tensors):
@@ -373,7 +374,7 @@ def flash_attention(
 
     The ``block_*`` arguments are validated exactly as the JAX op validates
     them (``_pick_block``), so the port accepts the same shapes; the CUDA
-    kernels then use their own 64 x 64 tiles and ignore them.
+    kernels then use their own tiles and ignore them.
 
     Causal attention with ``seq_q != seq_k`` raises: the JAX op's kernel
     masks it top-left aligned and its reference bottom-right aligned, so

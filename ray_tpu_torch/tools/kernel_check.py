@@ -20,9 +20,10 @@ passes a case it must fail.
 ``python -m ray_tpu_torch.tools.kernel_check --seeds N`` runs, in place
 of the mutants, the sound kernels and the two dS-unrounded copies
 (``SWEEP_CONTROLS``) in every bf16 case at input seeds 0 .. N-1, and
-ends with the worst sound gradient reading against the RMS bound and the
-least reading of each copy: the bound's margin on both sides, beyond the
-one draw the parity cases take.
+ends with the worst sound gradient reading against the RMS bound, the
+worst sound forward output readings against theirs, and the least
+reading of each copy: the bounds' margins on both sides, beyond the one
+draw the parity cases take.
 """
 
 from __future__ import annotations
@@ -85,8 +86,9 @@ CASES = {
 _BF16_CASES = ("main", "gqa", "non_causal", "s1000")
 _FWD_BOUND = "if (causal) nkb = min(nkb, (q0 + BM - 1) / BN + 1);"
 _FWD_DROP_DIAG = "if (causal) nkb = min(nkb, (q0 + BM - 1) / BN + 1) - (q0 >= sq / 2);"
-_TC_PV = ("          mma_bf16_16816(oacc[2 * dp], pa, vb[0], vb[1]);\n"
-          "          mma_bf16_16816(oacc[2 * dp + 1], pa, vb[2], vb[3]);\n")
+_FWD_TC_WAIT_K = "      mbar_wait(full_k(s), ph);\n"
+_FWD_TC_WAIT_V = "      mbar_wait(full_v(s), ph);\n"
+_FWD_TC_RELEASE = "      mbar_arrive(empty_bar(s));\n"
 _DKV_TC_DK = ("        mma_bf16_16816(tk[0], da, b[0], b[1]);\n"
               "        mma_bf16_16816(tk[1], da, b[2], b[3]);\n")
 _DQ_TC_DQ = ("        mma_bf16_16816(acc[2 * dp], pa, b[0], b[1]);\n"
@@ -108,9 +110,11 @@ def _remainder_products(products: str, packed: str, rest: str, values: str) -> s
 
 
 #: name -> (source file, text, replacement, cases it must fail: None = any
-#: verdict is reported, nothing is required). Every kernel's bf16 cases run
-#: its tensor-core version (``*_tc.cu``), its f32 cases and the tiny Llama
-#: the CUDA-core one.
+#: verdict is reported, nothing is required); text and replacement are
+#: strings, or tuples of strings for a copy made by several edits, each
+#: text found exactly once. Every kernel's bf16 cases run its tensor-core
+#: version (``*_tc.cu``), its f32 cases and the tiny Llama the CUDA-core
+#: one.
 MUTANTS = {
     # the second half of the q tiles drops its diagonal K tile
     "fwd_drop_diag_tile_late_rows": (
@@ -120,16 +124,16 @@ MUTANTS = {
     # the accumulator is not rescaled when the running maximum grows
     "fwd_tc_skip_alpha_rescale": (
         "flash_fwd_tc.cu",
-        "oacc[j][0] *= alpha[0]; oacc[j][1] *= alpha[0]; oacc[j][2] *= alpha[1]; "
-        "oacc[j][3] *= alpha[1];",
-        "", _BF16_CASES),
-    # p kept to 16 bits before P.V (a bf16 part and a bf16 remainder, two
-    # products) instead of rounded to bf16: its error is the size of the
-    # rounding noise the sound forward already shows against its plain
-    # version (running vs final maximum), so no rule can require it to
-    # fail; reported only
-    "fwd_tc_p_unrounded": (
-        "flash_fwd_tc.cu", _TC_PV, _remainder_products(_TC_PV, "pa", "pr", "ps"), None),
+        "for (int i = 0; i < D / 2; ++i) oacc[i] *= alpha[(i >> 1) & 1];",
+        "for (int i = 0; i < D / 2; ++i) {}", _BF16_CASES),
+    # a consumer releases its ring stage as soon as the stage's K and V have
+    # landed, before the products that read them (the P.V last): the
+    # producer's next TMA loads may overwrite them underneath. The release
+    # still follows both waits on the stage, so the producer cannot run a
+    # phase ahead of a wait and hang the kernel.
+    "fwd_tc_release_before_pv": (
+        "flash_fwd_tc.cu", (_FWD_TC_WAIT_V, _FWD_TC_RELEASE, _FWD_TC_WAIT_K),
+        ("", "", _FWD_TC_WAIT_K + _FWD_TC_WAIT_V + _FWD_TC_RELEASE), ("main", "gqa", "s1000")),
     # the second half of the q rows skips the first K tile
     "dq_skip_first_tile_late_rows": (
         "flash_bwd_dq.cu", "for (int kb = 0; kb < nkb; ++kb) {",
@@ -273,17 +277,30 @@ def use_library(lib):
         _build.library = saved
 
 
-def variant_library(tmp: Path, name: str, fname: str, text: str, repl: str):
+def edits(text, repl) -> list:
+    """A mutant's (text, replacement) pairs, applied in order: one pair, or
+    the pairs of two equally long tuples."""
+    if isinstance(text, str):
+        return [(text, repl)]
+    if len(text) != len(repl):
+        raise ValueError("a mutant's texts and replacements differ in number")
+    return list(zip(text, repl))
+
+
+def variant_library(tmp: Path, name: str, fname: str, text, repl):
     """Build and load a copy of the kernel sources in which ``text``, found
-    exactly once in ``fname``, is replaced by ``repl``."""
+    exactly once in ``fname``, is replaced by ``repl`` (each pair of
+    ``edits(text, repl)`` in turn)."""
     from ray_tpu_torch.ops import _build
 
     csrc = tmp / name / "csrc"
     shutil.copytree(_build.CSRC, csrc)
     src = (csrc / fname).read_text()
-    if src.count(text) != 1:
-        raise RuntimeError(f"variant {name}: {text!r} is not once in {fname}")
-    (csrc / fname).write_text(src.replace(text, repl))
+    for old, new in edits(text, repl):
+        if src.count(old) != 1:
+            raise RuntimeError(f"variant {name}: {old!r} is not once in {fname}")
+        src = src.replace(old, new)
+    (csrc / fname).write_text(src)
     path, _ = _build.build(csrc=csrc, build_dir=tmp / name / "build")
     return _build.load(path)
 
@@ -319,17 +336,26 @@ def _run_variant(A, L, variant: str) -> dict:
 
 def sweep_summary(rows: list) -> dict:
     """From ``seed_sweep``'s rows: the worst sound gradient reading and its
-    margin under the bf16 gradient RMS bound, and each control's least
-    reading of the gradient it breaks (dq, or dk) and its factor over it."""
+    margin under the bf16 gradient RMS bound, the worst sound forward
+    output readings and their margins under the bf16 ``o`` bounds, and
+    each control's least reading of the gradient it breaks (dq, or dk)
+    and its factor over it."""
     bound = TOL["bfloat16"]["grad"]["rel_rms"]
     sound = max(((r["rel_rms_err"][w], r["case"], r["seed"], w)
                  for r in rows if r["variant"] == "sound" for w in r["rel_rms_err"]),
                 default=None)
-    out = {"bound": bound, "sound_worst": None, "controls_least": {}}
+    out = {"bound": bound, "sound_worst": None, "controls_least": {}, "o_worst": {}}
     if sound is not None:
         err, case, seed, w = sound
         out["sound_worst"] = {"rel_rms_err": err, "grad": w, "case": case, "seed": seed,
                               "bound_over_worst": bound / max(err, 1e-30)}
+    for kind, o_bound in TOL["bfloat16"]["o"].items():
+        key = f"max_{kind}_err" if kind == "scaled" else f"{kind}_err"
+        worst = max(((r["o"][key], r["case"], r["seed"])
+                     for r in rows if r["variant"] == "sound" and "o" in r), default=None)
+        if worst is not None:
+            out["o_worst"][key] = {"err": worst[0], "case": worst[1], "seed": worst[2],
+                                   "bound": o_bound, "bound_over_worst": o_bound / max(worst[0], 1e-30)}
     for name in SWEEP_CONTROLS:
         w = "dq" if name.startswith("dq_") else "dk"
         least = min(((r["rel_rms_err"][w], r["case"], r["seed"])
@@ -341,10 +367,11 @@ def sweep_summary(rows: list) -> dict:
 
 
 def seed_sweep(A, seeds: int) -> list:
-    """Gradient readings (dq, dk, dv) of the sound kernels and of the
-    ``SWEEP_CONTROLS`` copies in every bf16 case at input seeds
-    ``0 .. seeds - 1``, one JSON line each: how far the sound kernels stay
-    under the RMS bound, and the controls over it, beyond one draw."""
+    """Readings of the sound kernels and of the ``SWEEP_CONTROLS`` copies
+    (gradients dq, dk, dv; the forward's ``o`` and ``lse``) in every bf16
+    case at input seeds ``0 .. seeds - 1``, one JSON line each: how far the
+    sound kernels stay under the bounds, and the controls over the
+    gradient RMS bound, beyond one draw."""
     rows = []
     with tempfile.TemporaryDirectory() as tmp:
         libs = {"sound": None}
@@ -355,10 +382,12 @@ def seed_sweep(A, seeds: int) -> list:
                     for seed in range(seeds):
                         r = parity_case(A, CASES[case], seed)
                         row = {"variant": variant, "case": case, "seed": seed,
-                               "ok": all(r[w]["ok"] for w in ("dq", "dk", "dv")),
+                               "ok": all(r[w]["ok"] for w in ("o", "lse", "dq", "dk", "dv")),
                                "rel_rms_err": {w: r[w]["rel_rms_err"] for w in ("dq", "dk", "dv")},
                                "max_scaled_err": {w: r[w]["max_scaled_err"]
-                                                  for w in ("dq", "dk", "dv")}}
+                                                  for w in ("dq", "dk", "dv")},
+                               "o": {k: r["o"][k] for k in ("max_scaled_err", "rel_rms_err")},
+                               "lse_max_abs_err": r["lse"]["max_abs_err"]}
                         print(json.dumps(row), flush=True)
                         rows.append(row)
                         torch.cuda.empty_cache()

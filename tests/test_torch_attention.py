@@ -350,11 +350,20 @@ def cuda_device():
     return torch.device("cuda")
 
 
+#: (dtype, d, causal, h, hk, s): both dtypes at every instantiated head_dim
+#: with ragged S and GQA at h=4; then bf16 (the tensor-core kernels) at the
+#: training width d=128, h=32 with 8 kv heads, ragged (1000: the last q and
+#: k tiles cut) and full (2048). f32 GQA at that size reads 1.2e-6 to
+#: 1.8e-6 relative RMS on dk/dv, over the f32 rule's 1e-6 (ROADMAP, Queue C).
+_CUDA_CASES = [(dtype, d, causal, 4, hk, s) for dtype in ("float32", "bfloat16")
+               for d in tattn.KERNEL_HEAD_DIMS
+               for causal, hk, s in [(True, 4, 256), (False, 2, 200), (True, 1, 130)]]
+_CUDA_CASES += [("bfloat16", 128, True, 32, 8, 1000), ("bfloat16", 128, True, 32, 8, 2048)]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("d", tattn.KERNEL_HEAD_DIMS)
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("causal,hk,s", [(True, 4, 256), (False, 2, 200), (True, 1, 130)])
-def test_cuda_kernels_match_plain(cuda_device, dtype, causal, hk, s, d):
+@pytest.mark.parametrize("dtype,d,causal,h,hk,s", _CUDA_CASES)
+def test_cuda_kernels_match_plain(cuda_device, dtype, d, causal, h, hk, s):
     """Each kernel against its plain version on the card, by
     ``kernel_check.compare``: every element within TOL[dtype][kind] of its
     own size and its row's (bf16: about one ulp of rounding of outputs and
@@ -362,9 +371,24 @@ def test_cuda_kernels_match_plain(cuda_device, dtype, causal, hk, s, d):
     f32 the CUDA-core ones, at every instantiated head_dim, with ragged S
     and GQA."""
     readings = kernel_check.parity_case(
-        tattn, dict(b=2, h=4, hk=hk, s=s, d=d, dtype=dtype, causal=causal))
+        tattn, dict(b=2, h=h, hk=hk, s=s, d=d, dtype=dtype, causal=causal))
     for what, r in readings.items():
         assert r["ok"], (what, r)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("sm_scale", [-0.125, 0.0])
+def test_cuda_fwd_any_scale_sign(cuda_device, sm_scale):
+    """The bf16 forward takes each row's max on the raw scores and folds
+    the scale into the exponent, negating the scores for a negative scale:
+    a negative or zero ``sm_scale`` (all keys equal) still matches the
+    plain version, causal mask and GQA included."""
+    q, k, v, _ = kernel_check.make_inputs(2, 4, 2, 200, 128, "bfloat16", seed=3)
+    kw = dict(causal=True, sm_scale=sm_scale, h=4, hk=2)
+    ko, klse = tattn.flash_fwd(q, k, v, **kw)
+    po, plse = tattn._fwd_plain(q, k, v, True, sm_scale, 4, 2)
+    assert kernel_check.compare(ko, po, "bfloat16")["ok"]
+    assert float((klse - plse).abs().max()) <= kernel_check.LSE_ATOL
 
 
 @pytest.mark.cuda
@@ -516,10 +540,13 @@ def test_kernel_check_mutants_apply_to_sources():
     from ray_tpu_torch.ops import _build
 
     assert {"fwd_tc_drop_diag_tile_late_rows", "fwd_tc_skip_alpha_rescale",
-            "fwd_tc_p_unrounded", "dkv_tc_skip_last_q_tile_early_keys",
+            "fwd_tc_release_before_pv", "dkv_tc_skip_last_q_tile_early_keys",
             "dkv_tc_first_q_head_only", "dkv_tc_ds_unrounded",
             "dq_tc_skip_first_tile_late_rows", "dq_tc_ds_unrounded"} <= set(kernel_check.MUTANTS)
     bf16 = ("main", "gqa", "non_causal", "s1000")
+    for name in ("fwd_tc_drop_diag_tile_late_rows", "fwd_tc_skip_alpha_rescale"):
+        assert {"main", "gqa", "s1000"} <= set(kernel_check.MUTANTS[name][3]), name
+    assert "main" in kernel_check.MUTANTS["fwd_tc_release_before_pv"][3]
     for name in ("dkv_tc_skip_last_q_tile_early_keys", "dkv_tc_ds_unrounded",
                  "dq_tc_skip_first_tile_late_rows", "dq_tc_ds_unrounded"):
         assert set(bf16) <= set(kernel_check.MUTANTS[name][3]), name
@@ -528,8 +555,11 @@ def test_kernel_check_mutants_apply_to_sources():
                  "fwd_drop_diag_tile_late_rows"):  # the CUDA-core kernels run f32 only
         assert kernel_check.MUTANTS[name][3] == ("f32", "tiny"), name
     for name, (fname, text, repl, must_fail) in kernel_check.MUTANTS.items():
-        assert (_build.CSRC / fname).read_text().count(text) == 1, name
-        assert repl != text, name
+        src = (_build.CSRC / fname).read_text()
+        for old, new in kernel_check.edits(text, repl):
+            assert src.count(old) == 1, name
+            assert new != old, name
+            src = src.replace(old, new)
         for case in must_fail or ():
             assert case in kernel_check.CASES or case == "tiny", (name, case)
 
