@@ -10,10 +10,11 @@ JSON line on stdout:
    cache every process of the script shares (``bytecode_cache``), beside
    a new process's reading it; then the flash-attention kernels built from ``ray_tpu_torch/ops/csrc`` for
    ``sm_90a`` (build seconds, registers/spills from ``-Xptxas -v``, dynamic
-   shared memory per block, the tensor-core forward's at d=128 on a line
-   of its own with ptxas's notes on wgmma); each of the three has two kernels, bf16 on the
+   shared memory per block, the tensor-core kernels' at d=128 on a line
+   of their own with ptxas's notes on wgmma); each of the three has two kernels, bf16 on the
    tensor cores (``flash_fwd_tc.cu``, ``flash_bwd_dq_tc.cu``,
-   ``flash_bwd_dkv_tc.cu``, none of which may spill at d=128) and f32 on the
+   ``flash_bwd_dkv_tc.cu``, all on wgmma, none of which may spill or have
+   its wgmma serialized by ptxas at d=128) and f32 on the
    CUDA cores (``flash_fwd.cu``, ``flash_bwd_dq.cu``, ``flash_bwd_dkv.cu``);
 2. parity: each kernel against its plain PyTorch version on the same
    inputs, at the training slice's shapes (b=2, h=32, S=2048, d=128, bf16,
@@ -389,6 +390,7 @@ from __future__ import annotations
 import hashlib
 import json
 import math
+import re
 import subprocess
 import sys
 import time
@@ -447,18 +449,28 @@ def phase_build(torch):
     want = sorted((k, dt, d) for k, dt in INSTANTIATED for d in KERNEL_HEAD_DIMS)
     check(got == want, f"ptxas reported {got}, expected {want}")
     tc128 = {r["kernel"]: r for r in regs if r["kernel"].endswith("_tc_kernel") and r["d"] == 128}
-    # the forward's registers are its launch's count, which setmaxnreg then
-    # moves from the producer warpgroup to the two consumers
-    fwd = dict(tc128.get("flash_fwd_tc_kernel", {}),
-               dynamic_smem_bytes=smem["flash_fwd_tc"][128])
+    # the tensor-core kernels' registers are their launch's count, which
+    # setmaxnreg then moves from the producer warpgroup to the two consumers
+    for r in tc128.values():
+        r["dynamic_smem_bytes"] = smem[r["kernel"][:-len("_kernel")]][128]
     wgmma_notes = [line.strip() for line in report["ptxas"].splitlines()
                    if "wgmma" in line or "Performance Loss" in line]
     emit({"phase": "build", "arch": "sm_90a", "library": path.name,
           "seconds": report["seconds"], "cached": report["cached"],
-          "dynamic_smem_bytes": smem, "tc_d128": tc128, "fwd_tc_d128": fwd,
+          "dynamic_smem_bytes": smem, "tc_d128": tc128,
           "ptxas_wgmma_notes": wgmma_notes, "ptxas": regs})
     for r in tc128.values():
         check(r["spill_bytes"] == 0, f"tensor-core kernel spills at d=128: {r}")
+    serialized = [n for n in wgmma_notes if d128_wgmma_note(n)]
+    check(not serialized, f"ptxas serializes wgmma at d=128: {serialized}")
+
+
+def d128_wgmma_note(note: str) -> bool:
+    """Whether a ptxas note on wgmma concerns a tensor-core kernel at
+    d=128 (its mangled name, ``..._tc_kernelILi128E...``), or names no
+    kernel and so cannot be shown not to."""
+    named = re.findall(r"flash_\w+?_tc_kernelILi(\d+)E", note)
+    return not named or "128" in named
 
 
 # ---------------------------------------------------------------------------

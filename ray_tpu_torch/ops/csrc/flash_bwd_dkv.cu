@@ -13,7 +13,12 @@
 // loops over every q head of its GQA group and every q tile from the
 // causal diagonal down. The sum over the group and the q tiles stays in
 // registers for the whole loop -- no atomics, no second pass -- which is
-// what the Pallas kernel's inner "arbitrary" grid axis did in VMEM.
+// what the Pallas kernel's inner "arbitrary" grid axis did in VMEM. It is
+// taken in the plain version's order: each q head's sum over its queries
+// in an accumulator of its own, then the heads added in turn. (One chain
+// over the group's 4 x S queries read 1.2e-6 to 1.8e-6 relative RMS
+// against the plain version at h=32, hk=8, S=1000 and 2048, over the f32
+// rule's 1e-6.)
 //
 // Bound: compute (four matrix products per tile pair, 2x the forward).
 // Each Q/dO tile is read once per block, and every shared-memory value
@@ -64,6 +69,11 @@ flash_bwd_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const int qb0 = causal ? k0 / BN : 0;  // q tiles above the diagonal see none of these keys
   for (int g = 0; g < group; ++g) {
     const int bh = qh0 + g;
+    float dk_h[4][DQ], dv_h[4][DQ];  // this q head's sums
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int c = 0; c < DQ; ++c) dk_h[i][c] = dv_h[i][c] = 0.f;
     for (int qb = qb0; qb < nqb; ++qb) {
       const int q0 = qb * BN;
       __syncthreads();
@@ -94,9 +104,16 @@ flash_bwd_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
         }
       }
       __syncthreads();
-      mm_ab<D>(dv_acc, Pt, dOs, ty, tx);
-      mm_ab<D>(dk_acc, dSt, Qs, ty, tx);
+      mm_ab<D>(dv_h, Pt, dOs, ty, tx);
+      mm_ab<D>(dk_h, dSt, Qs, ty, tx);
     }
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int c = 0; c < DQ; ++c) {
+        dk_acc[i][c] += dk_h[i][c];
+        dv_acc[i][c] += dv_h[i][c];
+      }
   }
 
 #pragma unroll

@@ -1,6 +1,6 @@
 // Shared pieces of the three f32 flash-attention kernels on the CUDA cores
 // (flash_fwd.cu, flash_bwd_dq.cu, flash_bwd_dkv.cu); bf16 runs on the
-// tensor-core kernels (*_tc.cu, helpers in flash_mma.cuh).
+// tensor-core kernels (*_tc.cu, helpers in flash_mma.cuh and hopper.cuh).
 //
 // Design (all three kernels): one thread block of 256 threads (16 x 16)
 // owns a 64-row tile of its output and walks the other operand's 64-row

@@ -55,8 +55,6 @@
 //   the runtime only.
 // Every head dim of KERNEL_HEAD_DIMS takes this path: rows of 32, 64 and
 // 128 bytes swizzle by their own span.
-#include <cuda.h>  // CUtensorMap and its enums (types only)
-
 #include "flash_common.cuh"
 #include "flash_mma.cuh"
 #include "hopper.cuh"
@@ -67,7 +65,6 @@ constexpr int FWD_BM = 128;       // query rows a block owns, 64 per consumer
 constexpr int FWD_BN = 128;       // keys per K/V tile
 constexpr int FWD_STAGES = 2;     // K/V ring depth
 constexpr int FWD_THREADS = 384;  // warpgroup 0 produces, 1 and 2 consume
-constexpr float LOG2E = 1.4426950408889634f;
 constexpr float LN2 = 0.6931471805599453f;
 
 // Shared memory of one block, from a 1024-byte aligned base: Q [BM x D],
@@ -214,7 +211,7 @@ flash_fwd_tc_kernel(const __grid_constant__ CUtensorMap tm_q,
       for (int kc = 0; kc < D / 16; ++kc) {
         const uint32_t off = (16 * kc / CW) * BM * SPAN + (16 * kc % CW) * 2;
         const uint32_t koff = (16 * kc / CW) * BN * SPAN + (16 * kc % CW) * 2;
-        wgmma_ss_m64n128k16(sacc, desc_kmajor<SPAN>(q_rows + off), desc_kmajor<SPAN>(kt + koff),
+        wgmma_ss_m64k16(sacc, desc_kmajor<SPAN>(q_rows + off), desc_kmajor<SPAN>(kt + koff),
                             kc > 0);
       }
       wgmma_commit();
@@ -243,7 +240,7 @@ flash_fwd_tc_kernel(const __grid_constant__ CUtensorMap tm_q,
       wgmma_fence();
 #pragma unroll
       for (int kc = 0; kc < BN / 16; ++kc)
-        wgmma_rs_m64k16<D>(oacc, pa[kc], desc_mnmajor<SPAN>(vt + 16 * kc * SPAN, BN * SPAN));
+        wgmma_rs_m64k16(oacc, pa[kc], desc_mnmajor<SPAN>(vt + 16 * kc * SPAN, BN * SPAN));
       wgmma_commit();
       wgmma_wait<0>();
       fence_regs(oacc);  // P.V has retired: this thread is done with the stage
@@ -283,50 +280,7 @@ flash_fwd_tc_kernel(const __grid_constant__ CUtensorMap tm_q,
   }
 }
 
-// ---- host: tensor maps and the launch
-
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-// cuTensorMapEncodeTiled, looked up once through the runtime (null if the
-// driver does not have it).
-inline EncodeTiled encode_tiled() {
-  static const EncodeTiled fn = [] {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
-                                                       cudaEnableDefault, &found);
-#else
-    cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault,
-                                              &found);
-#endif
-    return err == cudaSuccess && found == cudaDriverEntryPointSuccess
-               ? reinterpret_cast<EncodeTiled>(p) : nullptr;
-  }();
-  return fn;
-}
-
-// A row-major [n, rows, cols] bf16 tensor, read or written in boxes of
-// box_rows x box_cols of one head, swizzled by the box row's bytes.
-inline bool tensor_map_3d(CUtensorMap* map, const void* ptr, int n, int rows, int cols,
-                          int box_rows, int box_cols) {
-  const EncodeTiled encode = encode_tiled();
-  if (encode == nullptr) return false;
-  const cuuint64_t dims[3] = {(cuuint64_t)cols, (cuuint64_t)rows, (cuuint64_t)n};
-  const cuuint64_t strides[2] = {(cuuint64_t)cols * 2, (cuuint64_t)rows * cols * 2};
-  const cuuint32_t box[3] = {(cuuint32_t)box_cols, (cuuint32_t)box_rows, 1};
-  const cuuint32_t unit[3] = {1, 1, 1};
-  const CUtensorMapSwizzle swizzle = box_cols == 64   ? CU_TENSOR_MAP_SWIZZLE_128B
-                                     : box_cols == 32 ? CU_TENSOR_MAP_SWIZZLE_64B
-                                                      : CU_TENSOR_MAP_SWIZZLE_32B;
-  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(ptr), dims, strides,
-                box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
-                CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) ==
-         CUDA_SUCCESS;
-}
+// ---- host: the launch
 
 template <int D>
 int fwd_tc_launch(const void* q, const void* k, const void* v, void* o, void* lse, int bh, int h,

@@ -88,25 +88,63 @@ _FWD_BOUND = "if (causal) nkb = min(nkb, (q0 + BM - 1) / BN + 1);"
 _FWD_DROP_DIAG = "if (causal) nkb = min(nkb, (q0 + BM - 1) / BN + 1) - (q0 >= sq / 2);"
 _FWD_TC_WAIT_K = "      mbar_wait(full_k(s), ph);\n"
 _FWD_TC_WAIT_V = "      mbar_wait(full_v(s), ph);\n"
-_FWD_TC_RELEASE = "      mbar_arrive(empty_bar(s));\n"
-_DKV_TC_DK = ("        mma_bf16_16816(tk[0], da, b[0], b[1]);\n"
-              "        mma_bf16_16816(tk[1], da, b[2], b[3]);\n")
-_DQ_TC_DQ = ("        mma_bf16_16816(acc[2 * dp], pa, b[0], b[1]);\n"
-             "        mma_bf16_16816(acc[2 * dp + 1], pa, b[2], b[3]);\n")
+_TC_RELEASE = "      mbar_arrive(empty_bar(s));\n"
+_TC_WAIT_STAGE = "      mbar_wait(full_bar(s), ph);\n"
+_DQ_TC_DQ = ("#pragma unroll\n"
+             "      for (int kc = 0; kc < BN / 16; ++kc)\n"
+             "        wgmma_rs_m64k16(tile, da[kc], desc_mnmajor<SPAN>(kt + 16 * kc * SPAN, "
+             "BN * SPAN), kc > 0);\n")
+_DKV_TC_DK = ("#pragma unroll\n"
+              "        for (int kc = 0; kc < BQ / 16; ++kc)\n"
+              "          wgmma_ss_m64k16<1>(tile, desc_kmajor<128>(ds_tile + 32 * kc),\n"
+              "                             desc_mnmajor<SPAN>(qt + 16 * kc * SPAN, BQ * SPAN), "
+              "kc > 0);\n"
+              "        wgmma_commit();\n"
+              "        wgmma_wait<0>();\n")
 
 
-def _remainder_products(products: str, packed: str, rest: str, values: str) -> str:
-    """``products`` (two mma lines taking the packed bf16 A fragment
-    ``packed``) run a second time on ``rest``: the remainder of the f32
-    ``values`` after their bf16 rounding, so the sum sees each value to
-    16 bits instead of 8."""
-    indent = products[:len(products) - len(products.lstrip())]
-    return (f"{indent}uint32_t {rest}[4];\n"
-            f"{indent}for (int i = 0; i < 4; ++i)\n"
-            f"{indent}  {rest}[i] = pack_bf16x2("
-            f"{values}[2 * i] - __uint_as_float({packed}[i] << 16),\n"
-            f"{indent}      {values}[2 * i + 1] - __uint_as_float({packed}[i] & 0xffff0000u));\n"
-            + products + products.replace(f", {packed},", f", {rest},"))
+def _rest(lo: str, hi: str, packed: str) -> tuple:
+    """The remainders of the f32 values ``lo``, ``hi`` after their bf16
+    rounding ``packed`` (as ``pack_bf16x2(lo, hi)`` packs them)."""
+    return (f"{lo} - __uint_as_float({packed} << 16)",
+            f"{hi} - __uint_as_float({packed} & 0xffff0000u)")
+
+
+def _dq_ds_unrounded() -> str:
+    """dS.K run a second time on the remainder of dS (f32, in ``sacc``)
+    after its bf16 rounding (``da``): dQ sees dS to 16 bits instead of 8."""
+    lo, hi = _rest("sacc[8 * kc + 2 * i]", "sacc[8 * kc + 2 * i + 1]", "da[kc][i]")
+    return ("      uint32_t dr[BN / 16][4];\n"
+            "#pragma unroll\n"
+            "      for (int kc = 0; kc < BN / 16; ++kc)\n"
+            "#pragma unroll\n"
+            "        for (int i = 0; i < 4; ++i)\n"
+            f"          dr[kc][i] = pack_bf16x2({lo},\n"
+            f"                                  {hi});\n"
+            "      fence_regs(dr);\n"
+            "      wgmma_fence();\n"
+            + _DQ_TC_DQ
+            + _DQ_TC_DQ.replace("da[kc]", "dr[kc]").replace("kc > 0);", "1);"))
+
+
+def _dkv_ds_unrounded() -> str:
+    """dS^T.Q run a second time on the remainder of dS^T (f32, in ``dpt``)
+    after its bf16 rounding, written over the rounded tile once the first
+    product has read it: dK sees dS to 16 bits instead of 8."""
+    lo, hi = _rest("dpt[4 * j + 2 * r]", "dpt[4 * j + 2 * r + 1]", "hi")
+    return (_DKV_TC_DK
+            + "#pragma unroll\n"
+            "        for (int j = 0; j < BQ / 8; ++j)\n"
+            "#pragma unroll\n"
+            "          for (int r = 0; r < 2; ++r) {\n"
+            "            const uint32_t hi = pack_bf16x2(dpt[4 * j + 2 * r], dpt[4 * j + 2 * r + 1]);\n"
+            "            st_shared_b32(ds_tile + ps_off(j, r),\n"
+            f"                          pack_bf16x2({lo}, {hi}));\n"
+            "          }\n"
+            "        fence_proxy_async();\n"
+            "        named_barrier_sync(1 + cons, 128);\n"
+            "        wgmma_fence();\n"
+            + _DKV_TC_DK.replace("kc > 0);", "1);"))
 
 
 #: name -> (source file, text, replacement, cases it must fail: None = any
@@ -132,21 +170,25 @@ MUTANTS = {
     # still follows both waits on the stage, so the producer cannot run a
     # phase ahead of a wait and hang the kernel.
     "fwd_tc_release_before_pv": (
-        "flash_fwd_tc.cu", (_FWD_TC_WAIT_V, _FWD_TC_RELEASE, _FWD_TC_WAIT_K),
-        ("", "", _FWD_TC_WAIT_K + _FWD_TC_WAIT_V + _FWD_TC_RELEASE), ("main", "gqa", "s1000")),
+        "flash_fwd_tc.cu", (_FWD_TC_WAIT_V, _TC_RELEASE, _FWD_TC_WAIT_K),
+        ("", "", _FWD_TC_WAIT_K + _FWD_TC_WAIT_V + _TC_RELEASE), ("main", "gqa", "s1000")),
     # the second half of the q rows skips the first K tile
     "dq_skip_first_tile_late_rows": (
         "flash_bwd_dq.cu", "for (int kb = 0; kb < nkb; ++kb) {",
         "for (int kb = (q0 >= sq / 2); kb < nkb; ++kb) {", ("f32", "tiny")),
     "dq_tc_skip_first_tile_late_rows": (
-        "flash_bwd_dq_tc.cu", "if (ks0 >= sk || (causal && ks0 > qw0 + 15)) continue;",
-        "if (ks0 >= sk || (causal && ks0 > qw0 + 15) || (k0 == 0 && q0 >= sq / 2)) continue;",
+        "flash_bwd_dq_tc.cu", "for (int i = 0; i < D / 2; ++i) dq[i] += tile[i];",
+        "for (int i = 0; i < D / 2; ++i) dq[i] += kb == 0 && q0 >= sq / 2 ? 0.f : tile[i];",
         _BF16_CASES),
     # dS carried to 16 bits (a bf16 part and a bf16 remainder, two products)
     # instead of rounded to bf16 before dS.K
     "dq_tc_ds_unrounded": (
-        "flash_bwd_dq_tc.cu", _DQ_TC_DQ, _remainder_products(_DQ_TC_DQ, "pa", "pr", "dsf"),
-        _BF16_CASES),
+        "flash_bwd_dq_tc.cu", _DQ_TC_DQ, _dq_ds_unrounded(), _BF16_CASES),
+    # a consumer releases its K/V stage as soon as the stage has landed,
+    # before S, dP and dS.K read it (as fwd_tc_release_before_pv)
+    "dq_tc_release_before_products": (
+        "flash_bwd_dq_tc.cu", (_TC_RELEASE, _TC_WAIT_STAGE),
+        ("", _TC_WAIT_STAGE + _TC_RELEASE), ("main", "gqa", "s1000")),
     # the first half of the keys misses the last q tile
     "dkv_skip_last_q_tile_early_keys": (
         "flash_bwd_dkv.cu", "for (int qb = qb0; qb < nqb; ++qb) {",
@@ -160,8 +202,29 @@ MUTANTS = {
         ("gqa",)),
     # dS carried to 16 bits before dS^T.Q, as dq_tc_ds_unrounded
     "dkv_tc_ds_unrounded": (
-        "flash_bwd_dkv_tc.cu", _DKV_TC_DK, _remainder_products(_DKV_TC_DK, "da", "dr", "dsf"),
-        _BF16_CASES),
+        "flash_bwd_dkv_tc.cu", _DKV_TC_DK, _dkv_ds_unrounded(), _BF16_CASES),
+    # dV and dK summed in one wgmma accumulator chain over the group's
+    # queries, not a fresh accumulator a tile added round-to-nearest: the
+    # long chain's error takes GQA's dk and dv over the RMS bound
+    "dkv_tc_one_chain": (
+        "flash_bwd_dkv_tc.cu",
+        ("wgmma_ss_m64k16<1>(tile, desc_kmajor<128>(p_tile + 32 * kc),\n"
+         "                             desc_mnmajor<SPAN>(dot + 16 * kc * SPAN, BQ * SPAN), kc > 0);",
+         "for (int i = 0; i < D / 2; ++i) dv[i] += tile[i];",
+         "wgmma_ss_m64k16<1>(tile, desc_kmajor<128>(ds_tile + 32 * kc),\n"
+         "                             desc_mnmajor<SPAN>(qt + 16 * kc * SPAN, BQ * SPAN), kc > 0);",
+         "for (int i = 0; i < D / 2; ++i) dk[i] += tile[i];"),
+        ("wgmma_ss_m64k16<1>(dv, desc_kmajor<128>(p_tile + 32 * kc),\n"
+         "                             desc_mnmajor<SPAN>(dot + 16 * kc * SPAN, BQ * SPAN), 1);",
+         "for (int i = 0; i < D / 2; ++i) {}",
+         "wgmma_ss_m64k16<1>(dk, desc_kmajor<128>(ds_tile + 32 * kc),\n"
+         "                             desc_mnmajor<SPAN>(qt + 16 * kc * SPAN, BQ * SPAN), 1);",
+         "for (int i = 0; i < D / 2; ++i) {}"), ("gqa",)),
+    # a consumer releases its Q/dO stage (with its lse and delta) as soon as
+    # the stage has landed, before the four products read it
+    "dkv_tc_release_before_products": (
+        "flash_bwd_dkv_tc.cu", (_TC_RELEASE, _TC_WAIT_STAGE),
+        ("", _TC_WAIT_STAGE + _TC_RELEASE), ("main", "gqa", "s1000")),
 }
 #: the copies ``--seeds`` runs beside the sound kernels: each leaves dS
 #: unrounded in one backward kernel, the error the gradient RMS bound exists

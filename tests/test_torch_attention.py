@@ -351,14 +351,14 @@ def cuda_device():
 
 
 #: (dtype, d, causal, h, hk, s): both dtypes at every instantiated head_dim
-#: with ragged S and GQA at h=4; then bf16 (the tensor-core kernels) at the
-#: training width d=128, h=32 with 8 kv heads, ragged (1000: the last q and
-#: k tiles cut) and full (2048). f32 GQA at that size reads 1.2e-6 to
-#: 1.8e-6 relative RMS on dk/dv, over the f32 rule's 1e-6 (ROADMAP, Queue C).
+#: with ragged S and GQA at h=4; then both at the training width d=128,
+#: h=32 with 8 kv heads, ragged (1000: the last q and k tiles cut) and full
+#: (2048): a group of 4 q heads summed into each kv head's dk and dv.
 _CUDA_CASES = [(dtype, d, causal, 4, hk, s) for dtype in ("float32", "bfloat16")
                for d in tattn.KERNEL_HEAD_DIMS
                for causal, hk, s in [(True, 4, 256), (False, 2, 200), (True, 1, 130)]]
-_CUDA_CASES += [("bfloat16", 128, True, 32, 8, 1000), ("bfloat16", 128, True, 32, 8, 2048)]
+_CUDA_CASES += [(dtype, 128, True, 32, 8, s) for dtype in ("float32", "bfloat16")
+                for s in (1000, 2048)]
 
 
 @pytest.mark.cuda
@@ -541,16 +541,19 @@ def test_kernel_check_mutants_apply_to_sources():
 
     assert {"fwd_tc_drop_diag_tile_late_rows", "fwd_tc_skip_alpha_rescale",
             "fwd_tc_release_before_pv", "dkv_tc_skip_last_q_tile_early_keys",
-            "dkv_tc_first_q_head_only", "dkv_tc_ds_unrounded",
-            "dq_tc_skip_first_tile_late_rows", "dq_tc_ds_unrounded"} <= set(kernel_check.MUTANTS)
+            "dkv_tc_first_q_head_only", "dkv_tc_ds_unrounded", "dkv_tc_release_before_products",
+            "dq_tc_skip_first_tile_late_rows", "dq_tc_ds_unrounded",
+            "dq_tc_release_before_products"} <= set(kernel_check.MUTANTS)
     bf16 = ("main", "gqa", "non_causal", "s1000")
-    for name in ("fwd_tc_drop_diag_tile_late_rows", "fwd_tc_skip_alpha_rescale"):
+    for name in ("fwd_tc_drop_diag_tile_late_rows", "fwd_tc_skip_alpha_rescale",
+                 "dq_tc_release_before_products", "dkv_tc_release_before_products"):
         assert {"main", "gqa", "s1000"} <= set(kernel_check.MUTANTS[name][3]), name
     assert "main" in kernel_check.MUTANTS["fwd_tc_release_before_pv"][3]
     for name in ("dkv_tc_skip_last_q_tile_early_keys", "dkv_tc_ds_unrounded",
                  "dq_tc_skip_first_tile_late_rows", "dq_tc_ds_unrounded"):
         assert set(bf16) <= set(kernel_check.MUTANTS[name][3]), name
     assert "gqa" in kernel_check.MUTANTS["dkv_tc_first_q_head_only"][3]
+    assert "gqa" in kernel_check.MUTANTS["dkv_tc_one_chain"][3]
     for name in ("dq_skip_first_tile_late_rows", "dkv_skip_last_q_tile_early_keys",
                  "fwd_drop_diag_tile_late_rows"):  # the CUDA-core kernels run f32 only
         assert kernel_check.MUTANTS[name][3] == ("f32", "tiny"), name
@@ -592,6 +595,20 @@ def test_chip_smoke_backward_pair_bound_is_the_functions(causal):
                for k in ("flash_bwd_dq", "flash_bwd_dkv")]
     assert sum(k[2] for k in kernels) == 2 * 7 * b * h * pairs * d
     assert ms < sum(k[0] for k in kernels)
+
+
+def test_chip_smoke_fails_d128_wgmma_notes():
+    """``chip_smoke.py``'s build fails on a ptxas note that serializes
+    wgmma in any tensor-core kernel at d=128 (or names no kernel), and
+    reports the others."""
+    cs = _chip_smoke()
+    note = ("ptxas info    : (C7515) Potential Performance Loss: wgmma.mma_async instructions "
+            "are serialized due to insufficient register resources for the wgmma pipeline in "
+            "the function '_ZN3rtt{n}{k}ILi{d}ELi2EEEv14CUtensorMap_stS1_S1_S1_Pfiiiifi'")
+    for k in ("flash_fwd_tc_kernel", "flash_bwd_dq_tc_kernel", "flash_bwd_dkv_tc_kernel"):
+        assert cs.d128_wgmma_note(note.format(n=len(k), k=k, d=128)), k
+        assert not cs.d128_wgmma_note(note.format(n=len(k), k=k, d=64)), k
+    assert cs.d128_wgmma_note("ptxas info    : Potential Performance Loss: wgmma serialized")
 
 
 def test_kernel_check_sweep_summary():
