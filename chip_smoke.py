@@ -22,12 +22,15 @@ JSON line on stdout:
    held to its own size and its row's (``tools/kernel_check.py``);
 3. reference: the tiny Llama (f32) through the kernels against the same
    model through the plain attention reference (logits, loss, and every
-   gradient leaf by relative norm);
+   gradient leaf by relative norm); every launch must take the f32 route
+   (the last line's ``launches_f32_reference``);
 4. times: each kernel, its plain version and the PyTorch library call for
    the same function (``scaled_dot_product_attention`` forward/backward,
    timed only as a yardstick) with CUDA events, beside the card's bound,
    and the dq and dk/dv kernels together against SDPA's one backward call
-   and against the bound of the function that call computes;
+   and against the bound of the function that call computes
+   (``kernel_check.kernel_times``; the f32 route is timed the same way by
+   ``python3 -m ray_tpu_torch.tools.kernel_check --times``);
 5. slice: the Llama training step at 7B width (depth cut to 4 layers),
    one warm step and 3 timed steps on a fixed batch; the loss must be
    finite and fall, each kernel's launch count must equal
@@ -403,10 +406,6 @@ from ray_tpu_torch.tools._smoke_common import (
 
 T_IMPORT = time.perf_counter()
 
-#: peak rates of one H100 SXM (NVIDIA data sheet; dense tensor-core bf16,
-#: CUDA-core f32, HBM3)
-PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
-PEAK_BYTES = 3.35e12
 TPU_KERNELS = {  # wrapper → (TPU kernel it replaces, file:line of its body)
     "flash_fwd": ("_fwd_kernel", "ray_tpu/ops/attention.py:149"),
     "flash_bwd_dq": ("_bwd_dq_kernel", "ray_tpu/ops/attention.py:269"),
@@ -503,85 +502,30 @@ def phase_reference(K, L):
     """Tiny Llama in f32: kernels ("pallas") against the plain attention
     reference ("xla") with the same weights. Logits, loss and each gradient
     leaf by relative norm, bound ``kernel_check.TINY_REL_TOL``."""
+    from ray_tpu_torch.ops import attention as A
+
+    A.reset_launch_counts()
     ref = K.tiny_reference(L)
-    emit({"phase": "reference", "config": "LlamaConfig.tiny(max_seq_len=128) f32", **ref})
+    routes = {fn.__name__: dict(fn.route_launches) for fn in A.KERNELS}
+    emit({"phase": "reference", "config": "LlamaConfig.tiny(max_seq_len=128) f32", **ref,
+          "launches_by_route": routes})
     check(ref["shape_ok"], "tiny logits finite with the expected shape")
     check(ref["ok"], f"tiny reference: max relative error {ref['max_rel_err']} > {ref['tol']}")
+    for name, r in routes.items():  # the f32 route, one launch a layer
+        check(r["tensor_core"] == 0 and r["cuda_core"] > 0, f"reference {name}: {r}")
+    return {name: r["cuda_core"] for name, r in routes.items()}
 
 
 # ---------------------------------------------------------------------------
 # 4. times
 
 
-def bound_ms(kernel, b, h, hk, s, d, dtype, causal) -> tuple:
-    """The least time for the same work on this card: matmul FLOPs over the
-    dtype's peak vs bytes (each input read once, each output written once)
-    over HBM bandwidth. The score pairs counted are the ones the mask keeps.
-    ``flash_bwd`` is the whole backward function, as one SDPA backward call
-    computes it: dq, dk and dv from 5 products (S and dP once each)."""
-    pairs = s * (s + 1) // 2 if causal else s * s
-    esz = 2 if dtype == "bfloat16" else 4
-    q_bytes, kv_bytes, row_bytes = b * h * s * d * esz, b * hk * s * d * esz, b * h * s * 4
-    n_matmuls, nbytes = {
-        "flash_fwd": (2, q_bytes + 2 * kv_bytes + q_bytes + row_bytes),
-        "flash_bwd_dq": (3, 2 * q_bytes + 2 * kv_bytes + 2 * row_bytes + q_bytes),
-        "flash_bwd_dkv": (4, 2 * q_bytes + 2 * kv_bytes + 2 * row_bytes + 2 * kv_bytes),
-        "flash_bwd": (5, 2 * q_bytes + 2 * kv_bytes + 2 * row_bytes + q_bytes + 2 * kv_bytes),
-    }[kernel]
-    flops = 2 * n_matmuls * b * h * pairs * d
-    t_ops, t_bytes = flops / PEAK_FLOPS[dtype], nbytes / PEAK_BYTES
-    return 1e3 * max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes", flops, nbytes
-
-
-def phase_times(torch, K, A):
-    import torch.nn.functional as F
-
-    c = K.MAIN
-    h, hk, causal = c["h"], c["hk"], c["causal"]
-    q, k, v, do = K.make_inputs(c["b"], h, hk, c["s"], c["d"], c["dtype"], seed=2)
-    sc = 1.0 / math.sqrt(c["d"])
-    kw = dict(causal=causal, sm_scale=sc, h=h, hk=hk)
-    o, lse = A.flash_fwd(q, k, v, **kw)
-    delta = (do.float() * o.float()).sum(dim=-1, keepdim=True)
-    kernel_fns = {
-        "flash_fwd": lambda: A.flash_fwd(q, k, v, **kw),
-        "flash_bwd_dq": lambda: A.flash_bwd_dq(q, k, v, do, lse, delta, **kw),
-        "flash_bwd_dkv": lambda: A.flash_bwd_dkv(q, k, v, do, lse, delta, **kw),
-    }
-    plain_fns = {
-        "flash_fwd": lambda: A._fwd_plain(q, k, v, causal, sc, h, hk),
-        "flash_bwd_dq": lambda: A._bwd_dq_plain(q, k, v, do, lse, delta, causal, sc, h, hk),
-        "flash_bwd_dkv": lambda: A._bwd_dkv_plain(q, k, v, do, lse, delta, causal, sc, h, hk),
-    }
-    # the library yardstick: one scaled_dot_product_attention call forward,
-    # and its backward (dq, dk, dv together) for both backward kernels
-    shape4 = (c["b"], h, c["s"], c["d"])
-    q4, k4, v4 = (t.reshape(shape4).detach().requires_grad_() for t in (q, k, v))
-    do4 = do.reshape(shape4)
-    o4 = F.scaled_dot_product_attention(q4, k4, v4, is_causal=causal)
-    lib_fwd = K.time_ms(lambda: F.scaled_dot_product_attention(q4, k4, v4, is_causal=causal))
-    lib_bwd = K.time_ms(lambda: torch.autograd.grad(o4, (q4, k4, v4), do4, retain_graph=True))
-    library = {"flash_fwd": lib_fwd, "flash_bwd_dq": lib_bwd, "flash_bwd_dkv": lib_bwd}
-    times = {}
-    for name in kernel_fns:
-        kms = K.time_ms(kernel_fns[name])
-        pms = K.time_ms(plain_fns[name], 5, warmup=1)
-        bms, by, flops, nbytes = bound_ms(name, c["b"], h, hk, c["s"], c["d"], c["dtype"], causal)
-        times[name] = {"ms": kms, "plain_ms": pms, "bound_ms": bms, "bound_by": by,
-                       "library_ms": library[name]}
-        emit({"phase": "times", "kernel": name, "shape": c, "flops": flops, "bytes": nbytes,
-              **times[name], "tflops": flops / kms / 1e9, "ms_over_bound": kms / bms,
-              "ms_over_library": kms / library[name]})
-    # like for like: one SDPA backward call computes dq, dk and dv together,
-    # so the pair is held to that function's bound
-    pair = {k: sum(times[n][k] for n in ("flash_bwd_dq", "flash_bwd_dkv"))
-            for k in ("ms", "plain_ms")}
-    bms, by, flops, nbytes = bound_ms("flash_bwd", c["b"], h, hk, c["s"], c["d"], c["dtype"],
-                                      causal)
-    emit({"phase": "times", "kernels": "flash_bwd_dq + flash_bwd_dkv", "shape": c, **pair,
-          "bound_ms": bms, "bound_by": by, "flops": flops, "bytes": nbytes,
-          "tflops": flops / pair["ms"] / 1e9, "library_ms": lib_bwd,
-          "ms_over_bound": pair["ms"] / bms, "ms_over_library": pair["ms"] / lib_bwd})
+def phase_times(K, A):
+    """``kernel_check.kernel_times`` at the main case (bf16, the slice's
+    route); the f32 route is timed by ``kernel_check --times``."""
+    rows, times = K.kernel_times(A, K.MAIN)
+    for row in rows:
+        emit({"phase": "times", **row})
     return times
 
 
@@ -2951,6 +2895,7 @@ def train_resume_f32(torch, L, smi, storage):
     run uninterrupted in this process."""
     import numpy as np
 
+    from ray_tpu_torch.ops import attention as A
     from ray_tpu_torch.parallel.mesh import MeshSpec, make_mesh
     from ray_tpu_torch.parallel.sharding import fsdp_rules
     from ray_tpu_torch.train import CheckpointConfig, FailureConfig
@@ -2974,10 +2919,12 @@ def train_resume_f32(torch, L, smi, storage):
     state = L.init_sharded(cfg, mesh, rules, 0, L.adamw(1e-3))
     step = L.make_train_step(cfg, remat="selective", mesh=mesh, rules=rules)
     ref = []
+    A.reset_launch_counts()
     for i in range(TRAIN_A_STEPS):
         r = torch.from_numpy(rows[i * TRAIN_A_ROWS:(i + 1) * TRAIN_A_ROWS]).cuda()
         state, loss = step(state, {"tokens": r[:, :-1], "targets": r[:, 1:]})
         ref.append(float(loss))
+    ref_routes = {fn.__name__: dict(fn.route_launches) for fn in A.KERNELS}
     losses = final["losses"]
     rel = max(abs(a - b) / abs(b) for a, b in zip(losses, ref))
     history = [m["step"] for m in result.metrics_history if "loss" in m]
@@ -2985,7 +2932,8 @@ def train_resume_f32(torch, L, smi, storage):
           "steps": TRAIN_A_STEPS, "rows_per_step": TRAIN_A_ROWS, "seq": TRAIN_A_SEQ,
           "fail_before_step": TRAIN_A_FAIL, "resumed_history_steps": history,
           "losses": losses, "uninterrupted_losses": ref, "max_rel_diff": rel,
-          "checkpoints_kept": kept, "worker": done, "fit_s": fit_s, "nvidia_smi": smi})
+          "checkpoints_kept": kept, "worker": done, "fit_s": fit_s,
+          "uninterrupted_launches_by_route": ref_routes, "nvidia_smi": smi})
     check(len(losses) == TRAIN_A_STEPS and rel <= 1e-6,
           f"resumed losses equal the uninterrupted run within 1e-6: {rel}")
     check(history == list(range(TRAIN_A_FAIL - 1, TRAIN_A_STEPS)),
@@ -3577,7 +3525,7 @@ def rl_forward(torch, K, smi):
     for dtype, ms in times.items():
         esz = 4 if dtype == "float32" else 2
         flops, nbytes, n_params = cnn_work(qnet, RL_FRAMES, 1 if esz == 4 else 2, esz)
-        t_ops, t_bytes = flops / PEAK_FLOPS[dtype], nbytes / PEAK_BYTES
+        t_ops, t_bytes = flops / K.PEAK_FLOPS[dtype], nbytes / K.PEAK_BYTES
         bound = 1e3 * max(t_ops, t_bytes)
         rows[dtype] = {"ms": ms, "images_per_s": n / ms * 1e3, "bound_ms": bound,
                        "bound_images_per_s": n / bound * 1e3,
@@ -5450,8 +5398,8 @@ def main() -> int:
                              "cached_in_a_new_process": time.perf_counter() - t0}})
     phase_build(torch)
     errs = phase_parity(K, A)
-    phase_reference(K, L)
-    times = phase_times(torch, K, A)
+    f32_launches = phase_reference(K, L)
+    times = phase_times(K, A)
     t_start = time.perf_counter()
     launches, routes, slice_summary = phase_slice(torch, A, L, smi)
     serve_summary = phase_serve(torch, A, L, smi)
@@ -5479,7 +5427,8 @@ def main() -> int:
          "launches_by_route": routes[k], "launches_pipeline": pipe_launches[k],
          "launches_tune": tune_launches[k], "launches_job": job_launches[k],
          "launches_autoscaler": as_launches[k], "launches_preemption": preempt_launches[k],
-         "launches_dag": dag_launches[k], "launches_ingress": ingress_launches[k]}
+         "launches_dag": dag_launches[k], "launches_ingress": ingress_launches[k],
+         "launches_f32_reference": f32_launches[k]}
         for k in SOURCES
     ]})
     print(smi, flush=True)

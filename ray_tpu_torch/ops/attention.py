@@ -222,8 +222,9 @@ def _check_rows(lse, delta, q):
 def kernel_route(dtype: torch.dtype) -> str:
     """The kernel a dtype takes, one rule for all three wrappers (each C
     entry point, ``rtt_flash_{fwd,bwd_dq,bwd_dkv}``, picks by it): bf16 runs
-    on the tensor cores (``*_tc.cu``), f32 on the CUDA cores, since a
-    tensor-core f32 product is TF32."""
+    on the tensor cores (``*_tc.cu``), f32 on the CUDA cores in exact f32:
+    the f32 rule holds the kernels to the plain version's own sums, which
+    neither one TF32 product nor three (split TF32) reproduce."""
     if dtype == torch.bfloat16:
         return "tensor_core"
     if dtype == torch.float32:
@@ -235,14 +236,16 @@ fwd_route = kernel_route
 
 
 def _route(name: str, tensors, d: int) -> tuple:
-    """Check a wrapper's inputs; return its dtype code and route. The
-    tensor-core kernels read 16-byte chunks (the forward by TMA, whose
-    tensor maps take 16-byte aligned addresses), so their inputs must start
-    on a 16-byte boundary."""
+    """Check a wrapper's inputs; return its dtype code and route. Every
+    kernel but the f32 forward reads its inputs by TMA, whose tensor maps
+    take 16-byte aligned addresses, so their inputs must start on a 16-byte
+    boundary."""
     dtype = _check_kernel_inputs(name, tensors, d)
     route = kernel_route(tensors[0].dtype)
-    if route == "tensor_core" and any(x.data_ptr() % 16 for x in tensors):
-        raise ValueError(f"{name}: bf16 inputs must start on a 16-byte boundary")
+    by_tma = route == "tensor_core" or name != "flash_fwd"
+    if by_tma and any(x.data_ptr() % 16 for x in tensors):
+        kind = "bf16" if route == "tensor_core" else "f32"
+        raise ValueError(f"{name}: {kind} inputs must start on a 16-byte boundary")
     return dtype, route
 
 

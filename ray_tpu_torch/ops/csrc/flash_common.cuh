@@ -1,11 +1,12 @@
-// Shared pieces of the three f32 flash-attention kernels on the CUDA cores
-// (flash_fwd.cu, flash_bwd_dq.cu, flash_bwd_dkv.cu); bf16 runs on the
-// tensor-core kernels (*_tc.cu, helpers in flash_mma.cuh and hopper.cuh).
+// Shared pieces of the f32 flash-attention forward on the CUDA cores
+// (flash_fwd.cu), and the head-dim dispatch every kernel's entry point
+// uses. The f32 backward (flash_bwd_dq.cu, flash_bwd_dkv.cu) and the bf16
+// kernels (*_tc.cu) take their pieces from hopper.cuh.
 //
-// Design (all three kernels): one thread block of 256 threads (16 x 16)
+// Design of the forward: one thread block of 256 threads (16 x 16)
 // owns a 64-row tile of its output and walks the other operand's 64-row
 // tiles in a loop inside the block -- the loop takes the place of the
-// Pallas kernels' sequential "arbitrary" grid axis, whose sum was carried
+// Pallas kernel's sequential "arbitrary" grid axis, whose sum was carried
 // in VMEM scratch. Tiles are staged in shared memory, rows padded to D+1
 // floats so that the strided per-thread access below is free of bank
 // conflicts. Each thread computes a 4 x 4 micro-tile of
@@ -16,8 +17,7 @@
 //
 // Bound on the H100: the work is matrix products (compute-bound at the
 // model's shapes: 4*S^2*d/2 causal FLOPs against 4*S*d*2 bytes per head).
-// Scalar FMA on the CUDA cores reaches at most 67 TFLOP/s; a tensor-core
-// f32 product would be TF32, which cannot meet the f32 parity bound.
+// Scalar FMA on the CUDA cores reaches at most 67 TFLOP/s.
 #pragma once
 
 #include <cuda_runtime.h>

@@ -1,12 +1,15 @@
 // Hopper (sm_90a) pieces for the flash-attention kernels: mbarriers, TMA
 // tile copies and their tensor maps, wgmma and its shared-memory
-// descriptors, register rebalancing between warpgroups, named barriers.
+// descriptors, exact-f32 products from TMA-loaded f32 tiles, register
+// rebalancing between warpgroups, named barriers, and the warp-level
+// helpers and launch they share.
 //
 // Shared-memory tiles are what a 3-D TMA box of a row-major [n, rows, cols]
-// bf16 tensor leaves there: `rows` rows of CW = min(cols, 64) bf16, a row
-// being one swizzle span of CW * 2 bytes (32, 64 or 128); wider rows (d =
-// 128) are cut into column blocks of CW, one box each, stored one after the
-// other. Within an 8-row group the 16-byte chunks of a row are permuted by
+// tensor leaves there: `rows` rows of CW = min(cols, 128 / element bytes)
+// elements (64 bf16, 32 f32), a row being one swizzle span of CW elements
+// (32, 64 or 128 bytes); wider rows (d = 128 in bf16, d >= 64 in f32) are
+// cut into column blocks of CW, one box each, stored one after the other.
+// Within an 8-row group the 16-byte chunks of a row are permuted by
 // XOR with the row's index (Swizzle<B, 4, 3> on the byte address, 2^B =
 // span / 16), which is what `swizzle()` computes and what TMA and wgmma
 // read when both are told the same span. Tiles start on 1024-byte
@@ -26,11 +29,42 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include "flash_mma.cuh"
-
 namespace rtt {
 
 constexpr float LOG2E = 1.4426950408889634f;
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// Two f32 rounded to bf16 (to nearest even, as XLA's convert), lo in the
+// low half: the element of the lower column index, as A fragments want.
+__device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// Max / sum over the 4 lanes of a quad: the lanes holding one C row.
+__device__ __forceinline__ float quad_max(float v) {
+  v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 1));
+  return fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 2));
+}
+__device__ __forceinline__ float quad_sum(float v) {
+  v += __shfl_xor_sync(0xffffffffu, v, 1);
+  return v + __shfl_xor_sync(0xffffffffu, v, 2);
+}
+
+// Launch with a block of `threads`, after raising the dynamic shared-memory
+// cap; returns the launch's own error.
+template <typename Kernel, typename... Args>
+inline cudaError_t launch_block(Kernel kernel, dim3 grid, int threads, size_t smem, void* stream,
+                               Args... args) {
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         static_cast<int>(smem));
+  if (err != cudaSuccess) return err;
+  kernel<<<grid, threads, smem, static_cast<cudaStream_t>(stream)>>>(args...);
+  return cudaGetLastError();
+}
 
 // ---- mbarriers -------------------------------------------------------------
 
@@ -332,6 +366,102 @@ __device__ __forceinline__ void wgmma_rs_m64k16(float (&d)[64], const uint32_t (
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d));
 }
 
+// ---- exact f32 products from f32 tiles -------------------------------------
+//
+// The f32 backward kernels' products on the CUDA cores, from f32 tiles
+// that TMA left in shared memory (column blocks of CW = min(D, 32)
+// floats, R * CW apart, each row one swizzle span of SPAN = 4 * CW bytes,
+// its 16-byte chunks permuted by XOR with a function of the row). Each
+// output element is one fma chain from 0 over the reduced index,
+// ascending -- the order of a sequential f32 GEMM (cuBLAS's SIMT kernels,
+// which compute the plain versions), so the kernels' sums end on the
+// plain version's bits. Each thread owns a register micro-tile and feeds
+// it by 16-byte shared reads: a read of 4 values of each of its rows and
+// columns serves 4 x (rows x columns) fmas.
+
+// The XOR that permutes row r's 16-byte chunks (Swizzle<B, 4, 3> on the
+// byte address, as TMA writes a tile with rows of SPAN bytes): the same for
+// rows 8 apart.
+template <int SPAN>
+__device__ __forceinline__ int chunk_xor(int r) {
+  return ((r * SPAN) >> 7) & (SPAN / 16 - 1);
+}
+// Index (in floats) of the 16-byte chunk holding columns c .. c + 3
+// (c % 4 == 0) of row r of an f32 tile of R rows and D columns, given
+// x = chunk_xor(r).
+template <int D, int R>
+__device__ __forceinline__ int f32_chunk(int r, int x, int c) {
+  constexpr int CW = D < 32 ? D : 32;
+  return (c / CW) * (R * CW) + r * CW + ((((c % CW) >> 2) ^ x) << 2);
+}
+__device__ __forceinline__ float lane4(const float4& v, int i) {
+  return i == 0 ? v.x : i == 1 ? v.y : i == 2 ? v.z : v.w;
+}
+
+// acc[i][j] = sum over c of A[ra + SA i][c] * B[rb + SB j][c], c = 0 .. D-1
+// ascending, one fma chain an element: a score-shaped product (S, dP, S^T,
+// dP^T) of two f32 tiles with the reduced dimension (d) along their rows.
+// SA and SB are multiples of 8, so every row of the thread shares its
+// tile's chunk XOR.
+template <int D, int RA, int RB, int MI, int NJ, int SA, int SB>
+__device__ __forceinline__ void mm_rows_f32(float (&acc)[MI][NJ], const float* A, int ra,
+                                            const float* B, int rb) {
+  constexpr int SPAN = 4 * (D < 32 ? D : 32);
+  static_assert(SA % 8 == 0 && SB % 8 == 0, "rows that share a chunk XOR");
+  const int xa = chunk_xor<SPAN>(ra), xb = chunk_xor<SPAN>(rb);
+#pragma unroll
+  for (int i = 0; i < MI; ++i)
+#pragma unroll
+    for (int j = 0; j < NJ; ++j) acc[i][j] = 0.f;
+#pragma unroll
+  for (int c = 0; c < D; c += 4) {
+    float4 a[MI], b[NJ];
+#pragma unroll
+    for (int i = 0; i < MI; ++i)
+      a[i] = *reinterpret_cast<const float4*>(A + f32_chunk<D, RA>(ra + SA * i, xa, c));
+#pragma unroll
+    for (int j = 0; j < NJ; ++j)
+      b[j] = *reinterpret_cast<const float4*>(B + f32_chunk<D, RB>(rb + SB * j, xb, c));
+#pragma unroll
+    for (int cc = 0; cc < 4; ++cc)
+#pragma unroll
+      for (int i = 0; i < MI; ++i)
+#pragma unroll
+        for (int j = 0; j < NJ; ++j)
+          acc[i][j] = fmaf(lane4(a[i], cc), lane4(b[j], cc), acc[i][j]);
+  }
+}
+
+// acc[i][j] += sum over k of P[rp + SP i][k] * B[k][8 cg + j], k = 0 .. NK-1
+// ascending, continuing each element's fma chain: an output-shaped product
+// (dV, dK, dQ). P is a row-major f32 buffer with rows LDP floats apart
+// (P^T, dS^T or dS), B an f32 tile of NK rows and D columns; the thread
+// owns columns 8 cg .. 8 cg + 7.
+template <int D, int NK, int MI, int SP, int LDP>
+__device__ __forceinline__ void mm_pb_f32(float (&acc)[MI][8], const float* P, int rp,
+                                          const float* B, int cg) {
+  constexpr int SPAN = 4 * (D < 32 ? D : 32);
+#pragma unroll
+  for (int k = 0; k < NK; k += 4) {
+    float4 p[MI];
+#pragma unroll
+    for (int i = 0; i < MI; ++i)
+      p[i] = *reinterpret_cast<const float4*>(P + (rp + SP * i) * LDP + k);
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      const int x = chunk_xor<SPAN>(k + kk);
+      const float4 b0 = *reinterpret_cast<const float4*>(B + f32_chunk<D, NK>(k + kk, x, 8 * cg));
+      const float4 b1 =
+          *reinterpret_cast<const float4*>(B + f32_chunk<D, NK>(k + kk, x, 8 * cg + 4));
+      const float bv[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
+#pragma unroll
+      for (int i = 0; i < MI; ++i)
+#pragma unroll
+        for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(lane4(p[i], kk), bv[j], acc[i][j]);
+    }
+  }
+}
+
 // ---- host: tensor maps ----------------------------------------------------
 
 using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
@@ -358,23 +488,25 @@ inline EncodeTiled encode_tiled() {
   return fn;
 }
 
-// A row-major [n, rows, cols] bf16 tensor, read or written in boxes of
-// box_rows x box_cols of one head, swizzled by the box row's bytes.
+// A row-major [n, rows, cols] bf16 (or, with f32, float32) tensor, read or
+// written in boxes of box_rows x box_cols of one head, swizzled by the box
+// row's bytes (32, 64 or 128).
 inline bool tensor_map_3d(CUtensorMap* map, const void* ptr, int n, int rows, int cols,
-                          int box_rows, int box_cols) {
+                          int box_rows, int box_cols, bool f32 = false) {
   const EncodeTiled encode = encode_tiled();
   if (encode == nullptr) return false;
+  const cuuint64_t esz = f32 ? 4 : 2, span = box_cols * esz;
   const cuuint64_t dims[3] = {(cuuint64_t)cols, (cuuint64_t)rows, (cuuint64_t)n};
-  const cuuint64_t strides[2] = {(cuuint64_t)cols * 2, (cuuint64_t)rows * cols * 2};
+  const cuuint64_t strides[2] = {(cuuint64_t)cols * esz, (cuuint64_t)rows * cols * esz};
   const cuuint32_t box[3] = {(cuuint32_t)box_cols, (cuuint32_t)box_rows, 1};
   const cuuint32_t unit[3] = {1, 1, 1};
-  const CUtensorMapSwizzle swizzle = box_cols == 64   ? CU_TENSOR_MAP_SWIZZLE_128B
-                                     : box_cols == 32 ? CU_TENSOR_MAP_SWIZZLE_64B
-                                                      : CU_TENSOR_MAP_SWIZZLE_32B;
-  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(ptr), dims, strides,
-                box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
-                CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) ==
-         CUDA_SUCCESS;
+  const CUtensorMapSwizzle swizzle = span == 128  ? CU_TENSOR_MAP_SWIZZLE_128B
+                                     : span == 64 ? CU_TENSOR_MAP_SWIZZLE_64B
+                                                  : CU_TENSOR_MAP_SWIZZLE_32B;
+  return encode(map, f32 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32 : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3,
+                const_cast<void*>(ptr), dims, strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                swizzle, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
 }  // namespace rtt

@@ -142,25 +142,33 @@ class WorkerGroup:
     ):
         self.num_workers = num_workers
         self.pg: PlacementGroup = placement_group(bundles, strategy=pg_strategy)
-        self.pg.ready(timeout=60)
-        cls = ray_tpu_torch.remote(TrainWorker)
         self.workers = []
-        for rank in range(num_workers):
-            strategy = PlacementGroupSchedulingStrategy(
-                placement_group=self.pg, placement_group_bundle_index=rank
-            )
-            res = dict(bundles[rank])
-            num_cpus = res.pop("CPU", 1.0)
-            self.workers.append(
-                cls.options(
-                    num_cpus=num_cpus,
-                    resources=res or None,
-                    scheduling_strategy=strategy,
-                    max_restarts=0,
-                ).remote()
-            )
-        # block until every worker process is up
-        ray_tpu_torch.get([w.__ray_ready__() for w in self.workers], timeout=120)
+        # A gang left half made (an error, or a SystemExit from a stopped
+        # job's SIGTERM while the workers come up) goes before the error
+        # leaves: the caller never gets the group to shut down, and its
+        # placement group and actors would hold their GPUs after the driver.
+        try:
+            self.pg.ready(timeout=60)
+            cls = ray_tpu_torch.remote(TrainWorker)
+            for rank in range(num_workers):
+                strategy = PlacementGroupSchedulingStrategy(
+                    placement_group=self.pg, placement_group_bundle_index=rank
+                )
+                res = dict(bundles[rank])
+                num_cpus = res.pop("CPU", 1.0)
+                self.workers.append(
+                    cls.options(
+                        num_cpus=num_cpus,
+                        resources=res or None,
+                        scheduling_strategy=strategy,
+                        max_restarts=0,
+                    ).remote()
+                )
+            # block until every worker process is up
+            ray_tpu_torch.get([w.__ray_ready__() for w in self.workers], timeout=120)
+        except BaseException:
+            self.shutdown()
+            raise
 
     def execute(self, method: str, *args, timeout: Optional[float] = None, **kwargs) -> List[Any]:
         """Call an actor method on every worker, gather results."""

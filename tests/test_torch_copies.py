@@ -251,8 +251,11 @@ COPIES = {
     "train/trainer": (("TorchTrainer._run_dir",), (), ()),
     # the rendezvous address is the loopback the runtime serves on: the
     # reference probes a public address (a UDP connect to 8.8.8.8) to learn
-    # its routed interface, and the port opens no socket towards another host
-    "train/worker_group": (("_node_ip_address",), (), ()),
+    # its routed interface, and the port opens no socket towards another
+    # host; a gang left half made by an error or a stop (SystemExit) while
+    # its workers come up is shut down before the error leaves (the
+    # reference leaks its placement group and actors: "Inconsistencies")
+    "train/worker_group": (("_node_ip_address", "WorkerGroup.__init__"), (), ()),
     # --- the libraries above the runtime: Tune, Jobs, the autoscaler, the
     # CLI and two util shims (a TorchTrainer is a trainable as a JaxTrainer
     # is: the Tuner reads its _train_config and run_config) ---

@@ -130,6 +130,37 @@ def test_failure_exhausts_max_failures(cluster, tmp_path):
         trainer.fit()
 
 
+def test_half_made_gang_releases_its_resources(cluster, monkeypatch):
+    """A stop that lands while a gang's workers come up (the SIGTERM
+    handler's SystemExit out of the wait for them) leaves no actor and no
+    placement group holding resources: the trainer never gets the group to
+    shut down (``chip_smoke.py`` job (ii) once saw its GPU held)."""
+    from ray_tpu_torch.train import worker_group
+    from ray_tpu_torch.util import state
+
+    real_get = worker_group.ray_tpu_torch.get
+
+    def stopped(refs, timeout=None):
+        real_get(refs, timeout=timeout)  # the workers are up, as the stop comes
+        raise SystemExit(143)
+
+    monkeypatch.setattr(worker_group.ray_tpu_torch, "get", stopped)
+    with pytest.raises(SystemExit):
+        worker_group.WorkerGroup(2, [{"CPU": 1.0}] * 2, "PACK")
+    monkeypatch.setattr(worker_group.ray_tpu_torch, "get", real_get)
+    total = rt.cluster_resources()["CPU"]
+    deadline = time.monotonic() + 30
+    while time.monotonic() < deadline:  # (an earlier test's gang may still be going too)
+        alive = [a for a in state.list_actors()
+                 if a["class_name"].startswith("TrainWorker") and a["state"] == "ALIVE"]
+        pgs = [g for g in state.list_placement_groups() if g["state"] == "CREATED"]
+        if not alive and not pgs and rt.available_resources().get("CPU") == total:
+            break
+        time.sleep(0.1)
+    assert not alive and not pgs, (alive, pgs)
+    assert rt.available_resources().get("CPU") == total
+
+
 def test_checkpoint_manager_retention(tmp_path):
     mgr = CheckpointManager(str(tmp_path / "run"), num_to_keep=2,
                             score_attribute="acc", score_order="max")
