@@ -14,8 +14,10 @@ JSON line on stdout:
    of their own with ptxas's notes on wgmma); each of the three has two kernels, bf16 on the
    tensor cores (``flash_fwd_tc.cu``, ``flash_bwd_dq_tc.cu``,
    ``flash_bwd_dkv_tc.cu``, all on wgmma, none of which may spill or have
-   its wgmma serialized by ptxas at d=128) and f32 on the
-   CUDA cores (``flash_fwd.cu``, ``flash_bwd_dq.cu``, ``flash_bwd_dkv.cu``);
+   its wgmma serialized by ptxas at d=128) and f32 on the CUDA cores in
+   exact f32 (``flash_fwd.cu``, ``flash_bwd_dq.cu``, ``flash_bwd_dkv.cu``,
+   whose forward may spill at no head dim); all six load by TMA into an
+   mbarrier ring fed by a producer warp (``hopper.cuh``);
 2. parity: each kernel against its plain PyTorch version on the same
    inputs, at the training slice's shapes (b=2, h=32, S=2048, d=128, bf16,
    causal) and at GQA, non-causal, f32 and S=1000 variants, every element
@@ -460,6 +462,9 @@ def phase_build(torch):
           "ptxas_wgmma_notes": wgmma_notes, "ptxas": regs})
     for r in tc128.values():
         check(r["spill_bytes"] == 0, f"tensor-core kernel spills at d=128: {r}")
+    for r in regs:  # the f32 forward's consumers hold O and S in registers at every head dim
+        if r["kernel"] == "flash_fwd_kernel":
+            check(r["spill_bytes"] == 0, f"f32 forward spills: {r}")
     serialized = [n for n in wgmma_notes if d128_wgmma_note(n)]
     check(not serialized, f"ptxas serializes wgmma at d=128: {serialized}")
 

@@ -13,9 +13,12 @@ kernel (wrapper here)         replaces (``ray_tpu/ops/attention.py``)
 
 Each wrapper has two kernels, picked by dtype (``kernel_route``): bf16 runs
 on the tensor cores (``flash_fwd_tc.cu``, ``flash_bwd_dq_tc.cu``,
-``flash_bwd_dkv_tc.cu``), f32 on the CUDA cores (``flash_fwd.cu``,
-``flash_bwd_dq.cu``, ``flash_bwd_dkv.cu``); each wrapper's
-``route_launches`` counts the launches of each.
+``flash_bwd_dkv_tc.cu``, on ``wgmma``), f32 on the CUDA cores in exact f32
+(``flash_fwd.cu``, ``flash_bwd_dq.cu``, ``flash_bwd_dkv.cu``). All six load
+their tiles by TMA into an ``mbarrier`` ring fed by a producer warp and
+consumed by two warpgroups (``csrc/hopper.cuh``), so every input must
+start on a 16-byte boundary. Each wrapper's ``route_launches`` counts the
+launches of each route.
 
 Each wrapper launches its kernel for a CUDA tensor and counts the launch in
 its ``launches`` attribute; for a CPU tensor it runs the kernel's plain
@@ -237,13 +240,11 @@ fwd_route = kernel_route
 
 def _route(name: str, tensors, d: int) -> tuple:
     """Check a wrapper's inputs; return its dtype code and route. Every
-    kernel but the f32 forward reads its inputs by TMA, whose tensor maps
-    take 16-byte aligned addresses, so their inputs must start on a 16-byte
-    boundary."""
+    kernel reads its inputs by TMA, whose tensor maps take 16-byte aligned
+    addresses, so the inputs must start on a 16-byte boundary."""
     dtype = _check_kernel_inputs(name, tensors, d)
     route = kernel_route(tensors[0].dtype)
-    by_tma = route == "tensor_core" or name != "flash_fwd"
-    if by_tma and any(x.data_ptr() % 16 for x in tensors):
+    if any(x.data_ptr() % 16 for x in tensors):
         kind = "bf16" if route == "tensor_core" else "f32"
         raise ValueError(f"{name}: {kind} inputs must start on a 16-byte boundary")
     return dtype, route

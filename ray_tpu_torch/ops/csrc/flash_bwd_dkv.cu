@@ -61,7 +61,6 @@
 // - Ragged sq/sk: 3-D tensor maps over [b*h, sq, d] and [b*hk, sk, d];
 //   rows outside arrive as zeros, queries past sq are masked (p = 0), and
 //   rows of keys past sk are not written.
-#include "flash_common.cuh"
 #include "hopper.cuh"
 
 namespace rtt {

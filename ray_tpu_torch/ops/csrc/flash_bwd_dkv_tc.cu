@@ -73,7 +73,6 @@
 //   wgmma reads them any more) by TMA stores, which drop rows past sk.
 // Every head dim of KERNEL_HEAD_DIMS takes this path: rows of 32, 64 and
 // 128 bytes swizzle by their own span.
-#include "flash_common.cuh"
 #include "hopper.cuh"
 
 namespace rtt {

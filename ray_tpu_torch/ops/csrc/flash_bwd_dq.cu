@@ -38,7 +38,6 @@
 //   p = 0.
 // - Ragged sq/sk: rows outside the tensors arrive as zeros; keys past sk
 //   are masked (p = 0) and rows past sq are not written.
-#include "flash_common.cuh"
 #include "hopper.cuh"
 
 namespace rtt {

@@ -54,7 +54,6 @@
 //   store, which drops rows past sq.
 // Every head dim of KERNEL_HEAD_DIMS takes this path: rows of 32, 64 and
 // 128 bytes swizzle by their own span.
-#include "flash_common.cuh"
 #include "hopper.cuh"
 
 namespace rtt {

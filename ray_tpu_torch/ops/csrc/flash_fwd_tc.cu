@@ -55,7 +55,6 @@
 //   the runtime only.
 // Every head dim of KERNEL_HEAD_DIMS takes this path: rows of 32, 64 and
 // 128 bytes swizzle by their own span.
-#include "flash_common.cuh"
 #include "hopper.cuh"
 
 namespace rtt {

@@ -1,8 +1,8 @@
 // Hopper (sm_90a) pieces for the flash-attention kernels: mbarriers, TMA
 // tile copies and their tensor maps, wgmma and its shared-memory
 // descriptors, exact-f32 products from TMA-loaded f32 tiles, register
-// rebalancing between warpgroups, named barriers, and the warp-level
-// helpers and launch they share.
+// rebalancing between warpgroups, named barriers, the warp-level helpers
+// and launch they share, and the head-dim dispatch of every entry point.
 //
 // Shared-memory tiles are what a 3-D TMA box of a row-major [n, rows, cols]
 // tensor leaves there: `rows` rows of CW = min(cols, 128 / element bytes)
@@ -32,6 +32,7 @@
 namespace rtt {
 
 constexpr float LOG2E = 1.4426950408889634f;
+constexpr float NEG_INF = -1e30f;  // finite mask value, as _NEG_INF in the JAX op
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -510,3 +511,29 @@ inline bool tensor_map_3d(CUtensorMap* map, const void* ptr, int n, int rows, in
 }
 
 }  // namespace rtt
+
+// Return LAUNCH with D = head_dim in {16, 32, 64, 128} (any other head_dim
+// returns cudaErrorInvalidValue).
+#define RTT_DISPATCH_D(HEAD_DIM, LAUNCH)                                       \
+  do {                                                                         \
+    switch (HEAD_DIM) {                                                        \
+      case 16: { constexpr int D = 16; return (int)(LAUNCH); }                 \
+      case 32: { constexpr int D = 32; return (int)(LAUNCH); }                 \
+      case 64: { constexpr int D = 64; return (int)(LAUNCH); }                 \
+      case 128: { constexpr int D = 128; return (int)(LAUNCH); }               \
+    }                                                                          \
+    return (int)cudaErrorInvalidValue;                                         \
+  } while (0)
+
+// Dynamic shared memory a kernel's block takes at this head_dim (-1 if the
+// head_dim is not instantiated).
+#define RTT_SMEM_BYTES(FN, HEAD_DIM)                                           \
+  do {                                                                         \
+    switch (HEAD_DIM) {                                                        \
+      case 16: return (int)FN<16>();                                           \
+      case 32: return (int)FN<32>();                                           \
+      case 64: return (int)FN<64>();                                           \
+      case 128: return (int)FN<128>();                                         \
+    }                                                                          \
+    return -1;                                                                 \
+  } while (0)

@@ -18,7 +18,8 @@ and exits non-zero if the sound kernels fail anywhere or a broken copy
 passes a case it must fail.
 
 After the sound kernels' cases it checks that two calls of each f32
-kernel give the same bits (``same_bits``) in every f32 case.
+kernel (the forward's o and lse, dq, dk and dv) give the same bits
+(``same_bits``) in every f32 case.
 
 ``kernel_times`` times each kernel on one case beside the card's bound
 (``bound_ms``), its plain version and one PyTorch call for the same
@@ -67,8 +68,9 @@ import torch
 #: and dP round toward zero, and move more p and dS across a rounding
 #: boundary than the CUDA cores' did, 9.2e-5); 2^-12 keeps a factor of
 #: 1.2 and fails a kernel that leaves dS unrounded (2.6e-3 on dk and dq).
-#: f32: summation order only (TF32 off); sound at most 5.3e-6 scaled and
-#: 2.4e-7 rms (the forward). The f32 backward kernels sum every product in
+#: f32: summation order only (TF32 off); sound at most 5.8e-6 scaled and
+#: 2.4e-7 rms (the forward, whose online softmax rescales O tile by tile,
+#: at 8 input seeds). The f32 backward kernels sum every product in
 #: the plain version's order and read 0 against it; the bound is what
 #: binds any other order: at S=2048 the plain version's own fma chains
 #: carry about 1e-6, so a kernel summing otherwise reads over 1e-6 RMS
@@ -105,6 +107,10 @@ _BF16_CASES = ("main", "gqa", "non_causal", "s1000")
 _F32_CASES = ("f32", "f32_gqa", "f32_s1000")
 _FWD_BOUND = "if (causal) nkb = min(nkb, (q0 + BM - 1) / BN + 1);"
 _FWD_DROP_DIAG = "if (causal) nkb = min(nkb, (q0 + BM - 1) / BN + 1) - (q0 >= sq / 2);"
+_FWD_F32_ACTIVE = "if (!causal || k0 <= r0 + 63) {"
+_FWD_F32_WAIT = "    mbar_wait(full_bar(s), (kb / STAGES) & 1);\n"
+_FWD_F32_RELEASE = "    mbar_arrive(empty_bar(s));  // after P.V, the last product that read the stage\n"
+_FWD_F32_RESCALE = "for (int j = 0; j < 8; ++j) acc[i][j] *= al;"
 _FWD_TC_WAIT_K = "      mbar_wait(full_k(s), ph);\n"
 _FWD_TC_WAIT_V = "      mbar_wait(full_v(s), ph);\n"
 _TC_RELEASE = "      mbar_arrive(empty_bar(s));\n"
@@ -179,9 +185,20 @@ def _dkv_ds_unrounded() -> str:
 #: version (``*_tc.cu``), its f32 cases and the tiny Llama the CUDA-core
 #: one.
 MUTANTS = {
-    # the second half of the q tiles drops its diagonal K tile
+    # the second half of the q rows drops its diagonal K tile (f32: a
+    # consumer warpgroup whose 64 rows start in the second half skips the
+    # products of the tile that starts at its first row)
     "fwd_drop_diag_tile_late_rows": (
-        "flash_fwd.cu", _FWD_BOUND, _FWD_DROP_DIAG, ("f32", "tiny")),
+        "flash_fwd.cu", _FWD_F32_ACTIVE,
+        _FWD_F32_ACTIVE.replace("r0 + 63", "r0 + 63 - (r0 >= sq / 2 ? BN : 0)"), ("f32", "tiny")),
+    # a consumer releases its K/V stage as soon as the stage has landed,
+    # before S and P.V read it (as fwd_tc_release_before_pv)
+    "fwd_f32_release_before_pv": (
+        "flash_fwd.cu", (_FWD_F32_RELEASE, _FWD_F32_WAIT),
+        ("", _FWD_F32_WAIT + _FWD_F32_RELEASE), _F32_CASES),
+    # the accumulator is not rescaled when the running maximum grows
+    "fwd_f32_skip_alpha_rescale": (
+        "flash_fwd.cu", _FWD_F32_RESCALE, "for (int j = 0; j < 8; ++j) {}", _F32_CASES + ("tiny",)),
     "fwd_tc_drop_diag_tile_late_rows": (
         "flash_fwd_tc.cu", _FWD_BOUND, _FWD_DROP_DIAG, ("main", "gqa", "s1000")),
     # the accumulator is not rescaled when the running maximum grows
@@ -630,10 +647,10 @@ def kernel_times(A, c) -> tuple:
 
 
 def time_trees(A, c: dict, libs: dict) -> list:
-    """The dq and dk/dv kernels of each library in ``libs`` (name ->
-    loaded library, None for this checkout's) timed on the inputs of case
-    ``c`` in turns -- each library, then each again in reverse order -- so
-    that two source trees compare within one call on one card."""
+    """The forward, dq and dk/dv kernels of each library in ``libs`` (name
+    -> loaded library, None for this checkout's) timed on the inputs of
+    case ``c`` in turns -- each library, then each again in reverse order --
+    so that two source trees compare within one call on one card."""
     q, k, v, do = make_inputs(c["b"], c["h"], c["hk"], c["s"], c["d"], c["dtype"], seed=2)
     kw = dict(causal=c["causal"], sm_scale=1.0 / math.sqrt(c["d"]), h=c["h"], hk=c["hk"])
     o, lse = A.flash_fwd(q, k, v, **kw)
@@ -642,6 +659,7 @@ def time_trees(A, c: dict, libs: dict) -> list:
     for name in [*libs, *reversed(libs)]:
         with use_library(libs[name]) if libs[name] is not None else contextlib.nullcontext():
             rows.append({"tree": name, "shape": c,
+                         "flash_fwd_ms": time_ms(lambda: A.flash_fwd(q, k, v, **kw)),
                          "flash_bwd_dq_ms": time_ms(
                              lambda: A.flash_bwd_dq(q, k, v, do, lse, delta, **kw)),
                          "flash_bwd_dkv_ms": time_ms(
@@ -747,8 +765,8 @@ def main(argv=None) -> int:
                         help="instead of the mutants, time the f32 kernels at the main shape "
                              "beside their bounds, their plain versions and SDPA's f32 calls")
     parser.add_argument("--against", default=None, metavar="CSRC",
-                        help="with --times: then time the f32 dq and dk/dv kernels of this "
-                             "checkout and of the kernel sources in CSRC (another tree's "
+                        help="with --times: then time the f32 forward, dq and dk/dv kernels of "
+                             "this checkout and of the kernel sources in CSRC (another tree's "
                              "ray_tpu_torch/ops/csrc) in turns, MHA and GQA")
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():

@@ -1,5 +1,6 @@
-"""The f32 route of the flash-attention backward (``ray_tpu_torch.ops``),
-and split TF32 emulated on the CPU.
+"""The f32 route of the flash-attention kernels (``ray_tpu_torch.ops``),
+split TF32 emulated on the CPU, and the f32 forward's online softmax
+emulated at the kernel's own tiles.
 
 Split TF32 carries an f32 product on the tensor cores at a third of their
 TF32 rate: each operand x is hi = tf32(x) and lo = tf32(x - hi), rounded
@@ -12,8 +13,12 @@ f32 bounds: it meets them, and one TF32 pass fails them hundreds of times
 over. The f32 kernels do not use it: the rule holds them to the plain
 version itself, whose cuBLAS fma chains carry about 1e-6 of error at
 S=2048, so ``ops/csrc/flash_bwd_dq.cu`` and ``flash_bwd_dkv.cu`` sum every
-product in that order on the CUDA cores, which the last CPU test pins.
-The tests marked ``cuda`` run the kernels on the card and skip here.
+product in that order on the CUDA cores, which a CPU test pins. The f32
+forward (``flash_fwd.cu``) sums its two products the same way, but its
+online softmax rescales O tile by tile: ``online_fwd`` emulates that at the
+kernel's 64-key tiles and holds it to ``attention._fwd_plain`` under the
+unchanged f32 ``o`` rule. The tests marked ``cuda`` run the kernels on the
+card and skip here.
 """
 
 import math
@@ -166,6 +171,82 @@ def test_f32_route_name_and_kernels_sum_in_the_plain_order():
         assert re.search(r"acc\[i\]\[j\] = fmaf\(.*, acc\[i\]\[j\]\);", body), fn
 
 
+def test_f32_forward_is_a_tma_ring_of_exact_f32_products():
+    """The f32 forward loads by TMA into an ``mbarrier`` ring fed by a
+    producer warp and computes on consumer warpgroups: S with
+    ``mm_rows_f32`` and O += P.V with ``mm_pb_f32``, exact f32 ``fmaf``
+    chains (no TF32, no ``mma``), a stage released after P.V, the last
+    product that reads it. ``flash_common.cuh`` is gone: no source includes
+    it."""
+    from ray_tpu_torch.ops import _build
+
+    src = re.sub(r"//[^\n]*", "", (_build.CSRC / "flash_fwd.cu").read_text())
+    kernel = src[src.index("flash_fwd_kernel(const "):src.index("\nint fwd_launch(")]
+    assert kernel.count("mm_rows_f32<D, ") == 1 and kernel.count("mm_pb_f32<D, ") == 1
+    assert "tf32" not in src.lower() and "mma" not in src
+    for piece in ("tma_load_3d(", "mbar_expect_tx(", "mbar_wait(full_bar(s)", "setmaxnreg_dec<",
+                  "setmaxnreg_inc<"):
+        assert piece in kernel, piece
+    assert kernel.count("mbar_arrive(empty_bar(s));") == 1
+    assert kernel.index("mm_pb_f32<D, ") < kernel.index("mbar_arrive(empty_bar(s));")
+    assert not (_build.CSRC / "flash_common.cuh").exists()
+    for path in sorted(_build.CSRC.iterdir()):
+        assert "flash_common" not in path.read_text(), path.name
+
+
+def online_fwd(q, k, v, causal, sc, h, hk, bn=64, half=32):
+    """The f32 kernel's forward emulated in torch: key tiles of ``bn``, a
+    running max m and sum l per row (masked scores at -1e30, masked p = 0),
+    O rescaled by alpha = exp(m_old - m_new) before each tile's P.V, which
+    adds the tile in halves of ``half`` keys; o = O / max(l, 1e-30), lse =
+    m + log(max(l, 1e-30))."""
+    kx, vx = tattn._expand_kv(k, h, hk), tattn._expand_kv(v, h, hk)
+    scores = tattn._scores(q, kx, causal, sc)
+    sq, sk = scores.shape[-2:]
+    keep = torch.ones(sq, sk, dtype=torch.bool).tril() if causal else torch.ones(sq, sk, dtype=torch.bool)
+    m = torch.full((q.shape[0], sq, 1), tattn._NEG_INF)
+    l = torch.zeros(q.shape[0], sq, 1)
+    acc = torch.zeros(q.shape[0], sq, q.shape[-1])
+    for k0 in range(0, sk, bn):
+        s, kp = scores[..., k0:k0 + bn], keep[:, k0:k0 + bn]
+        m_new = torch.maximum(m, s.amax(dim=-1, keepdim=True))
+        alpha = torch.exp(m - m_new)
+        p = torch.where(kp, torch.exp(s - m_new), torch.zeros(()))
+        l = alpha * l + p.sum(dim=-1, keepdim=True)
+        acc = acc * alpha
+        for h0 in range(0, p.shape[-1], half):
+            acc = acc + p[..., h0:h0 + half] @ vx[:, k0 + h0:k0 + h0 + half]
+        m = m_new
+    lc = l.clamp_min(1e-30)
+    return acc / lc, m + torch.log(lc)
+
+
+#: (b, h, hk, s, d, causal): the main shape's length and width at fewer
+#: heads, causal and not, GQA, a ragged S, and the tiny config's d = 16
+FWD_CASES = [(1, 4, 4, 2048, 128, True), (1, 4, 2, 2048, 128, False), (1, 4, 1, 1000, 128, True),
+             (2, 4, 2, 256, 16, True)]
+
+
+@pytest.mark.parametrize("case", FWD_CASES, ids=lambda c: "b{}-h{}-hk{}-s{}-d{}-{}".format(
+    *c[:5], "causal" if c[5] else "full"))
+def test_online_softmax_at_kernel_tiles_meets_f32_o_rule(case):
+    """The rescaling of the online softmax is the only order in which the
+    f32 forward differs from the plain version: at the kernel's tiles it
+    stays within the f32 ``o`` rule (1e-5 scaled, 1e-6 relative RMS), at
+    half the RMS bound or less, and lse within ``LSE_ATOL``."""
+    b, h, hk, s, d, causal = case
+    rng = np.random.RandomState(7)
+    q = torch.from_numpy(rng.randn(b * h, s, d).astype(np.float32))
+    k, v = (torch.from_numpy(rng.randn(b * hk, s, d).astype(np.float32)) for _ in range(2))
+    sc = 1.0 / math.sqrt(d)
+    o, lse = online_fwd(q, k, v, causal, sc, h, hk)
+    po, plse = tattn._fwd_plain(q, k, v, causal, sc, h, hk)
+    r = kernel_check.compare(o, po, "float32", "o")
+    assert r["ok"], r
+    assert r["rel_rms_err"] <= 0.5 * kernel_check.TOL["float32"]["o"]["rel_rms"], r
+    assert float((lse - plse).abs().max()) <= kernel_check.LSE_ATOL
+
+
 # ---------------------------------------------------------------------------
 # on the card
 
@@ -195,6 +276,33 @@ def test_cuda_f32_backward_same_bits_twice(cuda_device, d):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("d", tattn.KERNEL_HEAD_DIMS)
+def test_cuda_f32_forward_same_bits_twice(cuda_device, d):
+    """No atomics, no order that depends on scheduling: two calls of the f32
+    forward give the same o and lse bits (GQA, ragged, causal and not)."""
+    for causal in (True, False):
+        q, k, v, _ = kernel_check.make_inputs(2, 4, 2, 200, d, "float32", seed=5)
+        kw = dict(causal=causal, sm_scale=1.0 / math.sqrt(d), h=4, hk=2)
+        o1, l1 = tattn.flash_fwd(q, k, v, **kw)
+        o2, l2 = tattn.flash_fwd(q, k, v, **kw)
+        assert torch.equal(o1, o2) and torch.equal(l1, l2), causal
+
+
+@pytest.mark.cuda
+def test_cuda_f32_fwd_refuses_misaligned(cuda_device):
+    """The f32 forward reads q, k and v by TMA: an f32 view of any of them
+    that starts off a 16-byte boundary is refused, not read misaligned."""
+    buf = torch.randn(2 * 128 * 64 + 1, device=cuda_device)
+    bad = buf[1:].view(2, 128, 64)
+    ok = torch.randn(2, 128, 64, device=cuda_device)
+    for i in range(3):
+        args = [ok] * 3
+        args[i] = bad
+        with pytest.raises(ValueError, match="16-byte"):
+            tattn.flash_fwd(*args, causal=True, sm_scale=0.125, h=2, hk=2)
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("wrapper", ["flash_bwd_dq", "flash_bwd_dkv"])
 def test_cuda_f32_bwd_refuses_misaligned(cuda_device, wrapper):
     """The f32 backward kernels read q, k, v and dO by TMA: an f32 view
@@ -212,16 +320,19 @@ def test_cuda_f32_bwd_refuses_misaligned(cuda_device, wrapper):
 
 def test_kernel_check_holds_the_f32_route():
     """``kernel_check`` runs the f32 kernels in three cases (the main
-    shape, GQA with 8 kv heads, a ragged S=1000), breaks each f32 backward
-    kernel's ring and the GQA order in copies that must fail them, and sums
+    shape, GQA with 8 kv heads, a ragged S=1000), breaks each f32 kernel's
+    ring, the forward's rescale and the GQA order in copies that must fail
+    them, and sums
     the f32 margins of a seed sweep apart from the bf16 ones."""
     f32 = ("f32", "f32_gqa", "f32_s1000")
     assert all(kernel_check.CASES[c] == dict(kernel_check.MAIN, dtype="float32",
                                              **({"hk": 8} if c == "f32_gqa" else
                                                 {"s": 1000} if c == "f32_s1000" else {}))
                for c in f32)
-    for name in ("dq_f32_release_before_products", "dkv_f32_release_before_products"):
+    for name in ("dq_f32_release_before_products", "dkv_f32_release_before_products",
+                 "fwd_f32_release_before_pv"):
         assert kernel_check.MUTANTS[name][3] == f32, name
+    assert kernel_check.MUTANTS["fwd_f32_skip_alpha_rescale"][3] == f32 + ("tiny",)
     assert kernel_check.MUTANTS["dkv_f32_one_chain"][3] == ("f32_gqa",)
 
     def row(case, seed, rms, scaled):
